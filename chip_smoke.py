@@ -2,15 +2,22 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``,
-drives TPC-H Q6, Q1 and a grouped min/max query end to end at SF 1
-through ``repro_torch.api.connect()`` (device: the card), checks every
-stage-0 fragment ran its CUDA kernel and the rows equal the port's
-oracle, then holds each kernel against its plain torch version at the
-main path's shapes (plus the first 2^20 rows and the whole table, an
-all-masked block and empty groups) and times both. Exits nonzero on any
-failure. The last two lines are JSON: the kernel table, then
-``{"ok": true, "device": ...}``.
+Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
+(four libraries, one nvcc each, in parallel), then drives the port's
+main path at SF 1 through ``repro_torch.api.connect()`` (device: the
+card): TPC-H Q6, Q1 and a grouped min/max query (the scan-aggregate
+kernels); Q12, Q14 and Q19, broadcast joins whose join stage runs the
+join-probe kernel; the selective repartition join of the semi-join
+tests, grouped by a dictionary-coded column, whose probe scan runs the
+Bloom-probe kernel and whose join stage runs the join-probe kernel; and
+Q12 again as a repartition join (the join kernel over two exchange
+leaves). It checks that every fragment of each kernel pipeline ran its
+CUDA kernel, that no stage of these queries waits for a kernel of a
+later slice, and that the rows equal the port's oracle; then it holds
+each kernel against its plain torch version at the main path's shapes
+(plus the first 2^20 rows, the whole table and the edge cases) and
+times both. Exits nonzero on any failure. The last two lines are JSON:
+the kernel table, then ``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
@@ -25,10 +32,23 @@ from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM5 HBM3 (data sheet)
 FP64_FLOPS = 34e12             # H100 SXM5 FP64 on the CUDA cores (data sheet)
+# H100 SXM5 float32 rate outside the tensor cores (data sheet): at least
+# the 32-bit integer rate, so the Bloom kernel's bound stays a least time
+INT32_OPS = 67e12
 RTOL = ATOL = 1e-9             # as the reference's row parity tests
 REPS = 25
 MINMAX_SQL = ("select l_returnflag, min(l_quantity) as mq, "
               "max(l_tax) as mt from lineitem group by l_returnflag")
+# the selective join of the semi-join tests (tests/test_semijoin.py),
+# grouped by a dictionary-coded column: its later stages are then
+# direct-strategy aggregates. (Grouped by l_orderkey, as there, its merge
+# stage is a sort-strategy aggregate, whose kernel comes with a later
+# slice of the port.)
+SELECTIVE_JOIN = (
+    "select o_orderpriority, sum(l_extendedprice) as rev "
+    "from lineitem, orders "
+    "where l_orderkey = o_orderkey and o_totalprice > 500000 "
+    "group by o_orderpriority")
 KERNELS = {   # dispatch kernel name → (wrapper module attr, CUDA source, TPU kernel)
     "filter_agg": ("fused_filter_agg", "filter_agg.cu",
                    "src/repro/kernels/filter_agg.py:134"),
@@ -36,9 +56,15 @@ KERNELS = {   # dispatch kernel name → (wrapper module attr, CUDA source, TPU 
                        "src/repro/kernels/groupby_onehot.py:118"),
     "segmented_minmax": ("fused_groupby_minmax", "groupby.cu",
                          "src/repro/kernels/segmented_minmax.py:90"),
+    "join_probe_agg": ("fused_join_probe_agg", "join_probe.cu",
+                       "src/repro/kernels/join_probe.py:105"),
+    "bloom_filter": ("fused_bloom_filter", "bloom.cu",
+                     "src/repro/kernels/bloom.py:219"),
 }
 LAUNCH_NAME = {"filter_agg": "filter_agg", "groupby_onehot": "groupby",
-               "segmented_minmax": "groupby_minmax"}
+               "segmented_minmax": "groupby_minmax",
+               "join_probe_agg": "join_probe_agg",
+               "bloom_filter": "bloom_filter"}
 
 
 def log(*a) -> None:
@@ -76,9 +102,16 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     state, launches = query_phase(torch, ext)
     try:
-        kernels = kernel_phase(torch, dev, state, launches)
+        # 256 MiB, zeroed before each timed call to flush the 50 MB L2
+        flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)
+        kernels = scan_kernel_phase(torch, dev, state, launches, flush)
+        kernels.append(join_kernel_phase(torch, dev, state, launches,
+                                         flush))
+        kernels.append(bloom_kernel_phase(torch, dev, state, launches,
+                                          flush))
     finally:
-        state["session"].close()
+        for s in state["sessions"]:
+            s.close()
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -106,79 +139,195 @@ def _assert_rows(got, want, ctx):
                                    err_msg=f"{ctx} :: {k}")
 
 
-def query_phase(torch, ext, *, sf=1, device=None):
+def _read(session, catalog, names):
     import numpy as np
+    from repro_torch.storage import InputHandler
+    ih = InputHandler(session.store)
+    out = {}
+    for name in names:
+        meta = catalog.tables[name]
+        parts = [ih.read_table(f)[0] for f in meta.files]
+        out[name] = {c.name: np.concatenate([p[c.name] for p in parts])
+                     for c in meta.schema}
+    return out
+
+
+def _op_kinds(op: dict) -> list:
+    kinds = [op["t"]]
+    for k in ("child", "probe", "build"):
+        if k in op:
+            kinds.extend(_op_kinds(op[k]))
+    return kinds
+
+
+def _check_host_kills(session, ran) -> int:
+    """Each Bloom fragment killed exactly the rows the host probe of its
+    filter kills on the rows it scanned; returns the total."""
+    import numpy as np
+    from repro_torch.kernels import bloom
+    from repro_torch.storage import InputHandler
+    ih = InputHandler(session.store)
+    total = 0
+    for r in ran:
+        spec = r["spec"]
+        (key,) = spec["semijoin"]["key"]
+        parts, _ = ih.read_tables(spec["scan_units"], [key], [])
+        keys = np.concatenate([t[key] for t in parts])
+        f = bloom.bloom_from_wire(spec["semijoin"])
+        hit = bloom.bloom_probe_np(keys.astype(np.uint32), f["words"],
+                                   f["bits"], f["k"])
+        if r["semijoin_killed"] != int((~hit).sum()):
+            raise AssertionError(f"Bloom fragment killed "
+                                 f"{r['semijoin_killed']} rows, the host "
+                                 f"probe {int((~hit).sum())}")
+        total += r["semijoin_killed"]
+    return total
+
+
+def _kernel_pipeline(name, kernel, res, ran, analyze):
+    """The one pipeline of ``res`` that runs ``kernel``; every one of its
+    fragments ran it, and EXPLAIN ANALYZE says so. A Bloom probe wraps
+    the fragments of the pipeline whose semi-join filter was applied."""
+    if kernel == "bloom_filter":
+        kpipes = [p for p in res.stats.pipelines
+                  if (p.semijoin or {}).get("applied")]
+    else:
+        kpipes = [p for p in res.stats.pipelines if p.kernel == kernel]
+    if len(kpipes) != 1:
+        raise AssertionError(
+            f"{name}: {kernel} pipelines "
+            f"{[(p.kernel, p.kernel_fragments) for p in kpipes]}")
+    p0 = kpipes[0]
+    # a straggler's duplicate invocation runs its fragment again
+    fragments = {r["spec"]["fragment"] for r in ran}
+    if p0.kernel_fragments != p0.n_fragments or \
+            len(fragments) != p0.n_fragments:
+        raise AssertionError(f"{name}: {p0.kernel_fragments} of "
+                             f"{p0.n_fragments} fragments on {kernel}, "
+                             f"{sorted(fragments)} ran it")
+    line = ("semijoin: pushed est≈" if kernel == "bloom_filter" else
+            f"kernel: {kernel} × {p0.n_fragments} fragments")
+    if line not in analyze:
+        raise AssertionError(f"{name}: explain_analyze lacks {line!r}")
+    return p0
+
+
+def query_phase(torch, ext, *, sf=1, n_parts=None, device=None):
     from repro_torch.api import connect
+    from repro_torch.core import CoordinatorConfig
     from repro_torch.sql import oracle
     from repro_torch.sql.logical import Binder
     from repro_torch.sql.parser import parse
+    from repro_torch.sql.physical import PlannerConfig
     from repro_torch.sql.queries import QUERIES
     from repro_torch.sql.rules import optimize
-    from repro_torch.storage import InputHandler
 
     session = connect(quota=16, device=device)
     t0 = time.perf_counter()
-    catalog = session.ensure_tpch(sf=sf)
+    catalog = session.ensure_tpch(sf=sf, n_parts=n_parts)
     log(f"ensure_tpch(sf={sf}): {time.perf_counter() - t0:.1f} s, device "
         f"{session.device}")
-    ih = InputHandler(session.store)
-    parts = [ih.read_table(f)[0] for f in catalog.tables["lineitem"].files]
-    lineitem = {c.name: np.concatenate([p[c.name] for p in parts])
-                for c in catalog.tables["lineitem"].schema}
-    log(f"lineitem: {len(lineitem['l_orderkey'])} rows")
+    # repartition joins: every join shuffles both sides (the semi-join
+    # tests' planner), in barrier mode with plan-time decisions, and no
+    # result cache (Q12's join stage shares its sem hash with the
+    # broadcast plan's)
+    repart = connect(store=session.store, quota=16, device=device,
+                     config=CoordinatorConfig(
+                         planner=PlannerConfig(broadcast_threshold_bytes=1,
+                                               exchange_partitions=4),
+                         use_result_cache=False, pipelined=False,
+                         adaptive=False))
+    repart.ensure_tpch(sf=sf, n_parts=n_parts)
+    tables = _read(session, catalog, ("lineitem", "orders", "part"))
+    lineitem = tables["lineitem"]
+    log(f"lineitem: {len(lineitem['l_orderkey'])} rows, orders "
+        f"{len(tables['orders']['o_orderkey'])}, part "
+        f"{len(tables['part']['p_partkey'])}")
 
-    # observe the fragments' FragmentStats as the workers return them
+    # observe the fragments' FragmentStats (and specs) as workers return
     records, lock = [], threading.Lock()
-    inner = session.handler
 
-    def handler(payload):
-        resp, runtime = inner(payload)
-        with lock:
-            records.append(resp["stats"])
-        return resp, runtime
-    session.handler = handler
+    def observe(s):
+        inner = s.handler
 
-    queries = [("q6", QUERIES["q6"], "filter_agg"),
-               ("q1", QUERIES["q1"], "groupby_onehot"),
-               ("minmax", MINMAX_SQL, "segmented_minmax")]
-    shapes = {}
+        def handler(payload):
+            resp, runtime = inner(payload)
+            with lock:
+                records.append(dict(resp["stats"], spec=payload))
+            return resp, runtime
+        s.handler = handler
+    observe(session)
+    observe(repart)
+
+    # (name, sql, session, {kernel its pipelines run: build table of a
+    #  broadcast join, whose rows the fragment's rows_in also counts})
+    queries = [("q6", QUERIES["q6"], session, {"filter_agg": None}),
+               ("q1", QUERIES["q1"], session, {"groupby_onehot": None}),
+               ("minmax", MINMAX_SQL, session, {"segmented_minmax": None}),
+               ("q12", QUERIES["q12"], session, {"join_probe_agg": "orders"}),
+               ("q14", QUERIES["q14"], session, {"join_probe_agg": "part"}),
+               ("q19", QUERIES["q19"], session, {"join_probe_agg": "part"}),
+               ("semijoin", SELECTIVE_JOIN, repart,
+                {"bloom_filter": None, "join_probe_agg": None}),
+               ("q12-repart", QUERIES["q12"], repart,
+                {"join_probe_agg": None})]
+    shapes, specs = {}, {}
     if session.device.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     ext.reset_launches()                     # the main path starts here
     try:
-        for name, sql, kernel in queries:
+        for name, sql, sess, kernels in queries:
             records.clear()
             t0 = time.perf_counter()
-            handle = session.submit(sql)
-            res = handle.result(timeout=600)
+            handle = sess.submit(sql)
+            res = handle.result(timeout=900)
             wall = time.perf_counter() - t0
-            rows = res.fetch(session.store)
-            stage0 = [p for p in res.stats.pipelines if p.kernel]
-            if len(stage0) != 1 or stage0[0].kernel != kernel:
-                raise AssertionError(f"{name}: kernel pipelines "
-                                     f"{[p.kernel for p in stage0]}")
-            p0 = stage0[0]
-            ran = [s for s in records if s["kernel"] == kernel]
-            if p0.kernel_fragments != p0.n_fragments or \
-                    len(ran) != p0.n_fragments:
-                raise AssertionError(
-                    f"{name}: {p0.kernel_fragments} of {p0.n_fragments} "
-                    f"stage-0 fragments on {kernel}")
-            if f"kernel: {kernel} × {p0.n_fragments} fragments" \
-                    not in handle.explain_analyze():
-                raise AssertionError(f"{name}: explain_analyze lacks the "
-                                     f"kernel line")
+            rows = res.fetch(sess.store)
+            analyze = handle.explain_analyze()
+            # a probe scan that carries a semi-join filter runs the Bloom
+            # kernel in any query; no other kernel may run, and no stage
+            # may wait for a kernel of a later slice
+            other = {r["kernel"] for r in records if r["kernel"]} - \
+                set(kernels) - {"bloom_filter"}
+            waiting = [p.kernel_miss_reason for p in res.stats.pipelines
+                       if "not yet ported" in (p.kernel_miss_reason or "")]
+            if other or waiting:
+                raise AssertionError(f"{name}: other kernels {other}, "
+                                     f"unported arms {waiting}")
+            on = []
+            for kernel, build in kernels.items():
+                ran = [r for r in records if r["kernel"] == kernel]
+                p0 = _kernel_pipeline(name, kernel, res, ran, analyze)
+                if kernel == "bloom_filter":
+                    killed = _check_host_kills(sess, ran)
+                    if not killed or killed != p0.semijoin_killed or \
+                            f"actual={killed} rows killed" not in analyze:
+                        raise AssertionError(
+                            f"{name}: {killed} rows killed, report "
+                            f"{p0.semijoin_killed}")
+                    log(f"query {name}: {killed} probe rows killed by the "
+                        f"Bloom kernel = the host probe's count")
+                    specs[name] = ran[0]["spec"]
+                if name == "q12-repart" and any(
+                        _op_kinds(r["spec"]["op"]).count("scan_exchange")
+                        != 2 for r in ran):
+                    raise AssertionError("q12-repart: join fragments do "
+                                         "not read two exchange leaves")
+                n_build = len(next(iter(tables[build].values()))) \
+                    if build else 0
+                shapes[(name, kernel)] = \
+                    max(r["rows_in"] for r in ran) - n_build
+                on.append(f"{len(ran)} on {kernel}, compute_s "
+                          f"{sum(r['compute_s'] for r in ran):.6f} s")
             lqp, _ = Binder(catalog).bind(parse(sql))
-            _assert_rows(rows, oracle.run(optimize(lqp),
-                                          {"lineitem": lineitem}), name)
-            shapes[kernel] = max(s["rows_in"] for s in ran)
+            _assert_rows(rows, oracle.run(optimize(lqp), tables), name)
             log(f"query {name}: wall {wall:.3f} s, compute_s "
-                f"{sum(s['compute_s'] for s in records):.6f} s over "
-                f"{len(records)} fragments ({len(ran)} on {kernel}, "
-                f"stage-0 compute_s "
-                f"{sum(s['compute_s'] for s in ran):.6f} s), rows = oracle")
+                f"{sum(r['compute_s'] for r in records):.6f} s over "
+                f"{len(records)} fragments ({'; '.join(on)}), "
+                f"rows = oracle")
     except BaseException:
         session.close()
+        repart.close()
         raise
     finally:
         launches = ext.launches()            # ... and ends here
@@ -189,39 +338,24 @@ def query_phase(torch, ext, *, sf=1, device=None):
         for kernel in KERNELS:
             if launches.get(LAUNCH_NAME[kernel], 0) < 1:
                 session.close()
+                repart.close()
                 raise AssertionError(f"{kernel}: no launch on the main path")
-    return {"lineitem": lineitem, "rows": shapes, "catalog": catalog,
-            "session": session}, launches
+    rows = {"filter_agg": shapes[("q6", "filter_agg")],
+            "groupby_onehot": shapes[("q1", "groupby_onehot")],
+            "segmented_minmax": shapes[("minmax", "segmented_minmax")]}
+    return {"lineitem": lineitem, "tables": tables, "rows": rows,
+            "join_rows": {q: shapes[(q, "join_probe_agg")]
+                          for q in ("q12", "q14", "q19")},
+            "bloom_rows": shapes[("semijoin", "bloom_filter")],
+            "bloom_spec": specs["semijoin"], "catalog": catalog,
+            "session": session, "sessions": (session, repart)}, launches
 
 
 # -- kernel phase: each kernel against its plain version --------------------------
 
-def _program_ops(prog, slot):
-    from repro_torch.kernels.program import COL, CONST
-    lo, hi = prog.slot_range(slot)
-    return sum(1 for op, _ in prog.code[lo:hi].tolist()
-               if op not in (COL, CONST))
-
-
-def _bound(prog, cols, mask, out_numel):
-    """Least time for this call: the bytes it must move (mask over the
-    capacity, each program column over the valid rows, the output once)
-    over HBM bandwidth, against the f64 operations these rows need over
-    the FP64 peak."""
-    n_valid = int(mask.sum())
-    width = sum(cols[c].element_size() for c in prog.names)
-    nbytes = mask.numel() + n_valid * width + out_numel * 8
-    m = mask
-    if prog.has_pred:
-        from repro_torch.kernels.program import eval_slot
-        m = mask & (eval_slot(prog, 0, cols) != 0)
-    n_pass = int(m.sum())
-    ops = n_valid * _program_ops(prog, 0) + n_pass * (
-        _program_ops(prog, 1) + prog.n_aggs
-        + sum(_program_ops(prog, 2 + a) for a in range(prog.n_aggs)))
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP64_FLOPS
-    return nbytes, max(t_bytes, t_ops) * 1e3, \
-        ("bytes" if t_bytes >= t_ops else "operations")
+def _sync(torch):
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
 
 
 def _time_ms(torch, fn, flush, reps=REPS):
@@ -242,12 +376,19 @@ def _time_ms(torch, fn, flush, reps=REPS):
     return statistics.median(times)
 
 
-def _compare(kernel, got, want, ctx):
+def _sizes(n_total, main_rows):
+    """The shapes each kernel is held at: the first 2^20 rows of the
+    table, the main path's largest fragment, the whole table."""
+    return (("2^20", min(1 << 20, n_total)), ("main", main_rows),
+            ("all", n_total))
+
+
+def _compare(got, want, ctx):
     import numpy as np
     g, w = got.cpu().numpy(), want.cpu().numpy()
     if g.shape != w.shape:
         raise AssertionError(f"{ctx}: shape {g.shape} != {w.shape}")
-    if kernel != "filter_agg":        # presence counts are exact
+    if g.ndim == 2:                   # grouped: presence counts are exact
         if not np.array_equal(g[..., -1], w[..., -1]):
             raise AssertionError(f"{ctx}: presence differs")
     np.testing.assert_allclose(g, w, rtol=RTOL, atol=ATOL, err_msg=ctx)
@@ -255,7 +396,76 @@ def _compare(kernel, got, want, ctx):
     return float(np.max(np.abs(g[finite] - w[finite]), initial=0.0))
 
 
-def kernel_phase(torch, dev, state, launches):
+def _equal(got, want, ctx):
+    """Bloom verdicts: equal row for row (max |err| 0)."""
+    if got.shape != want.shape or not bool((got == want).all()):
+        raise AssertionError(f"{ctx}: {int((got != want).sum())} "
+                             f"verdicts differ")
+    return 0.0
+
+
+def _program_ops(prog, slot):
+    from repro_torch.kernels.program import COL, CONST
+    lo, hi = prog.slot_range(slot)
+    return sum(1 for op, _ in prog.code[lo:hi].tolist()
+               if op not in (COL, CONST))
+
+
+def _program_work(prog, n_eval, n_pass):
+    """Operations of the expression program: the predicate on ``n_eval``
+    rows, the group id, the folds and the aggregate arguments on the
+    ``n_pass`` rows that pass it."""
+    return n_eval * _program_ops(prog, 0) + n_pass * (
+        _program_ops(prog, 1) + prog.n_aggs
+        + sum(_program_ops(prog, 2 + a) for a in range(prog.n_aggs)))
+
+
+def _bound(nbytes, ops, peak=FP64_FLOPS):
+    """Least time of a call that must move ``nbytes`` and do ``ops``:
+    the larger of the two over HBM bandwidth and the peak rate."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak
+    return nbytes, max(t_bytes, t_ops) * 1e3, \
+        ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _hold(torch, flush, ctx, call, plain, compare, bound, info):
+    """One kernel at one shape: its result against the plain version's,
+    both timed, and the bound of the work. Returns the result row."""
+    got, want = call(), plain()
+    _sync(torch)
+    err = compare(got, want, ctx)
+    ms = _time_ms(torch, call, flush)
+    plain_ms = _time_ms(torch, plain, flush, reps=5)
+    nbytes, bound_ms, bound_by = bound(got)
+    log(f"kernel {ctx}: {', '.join(f'{k} {v}' for k, v in info.items())}, "
+        f"{ms * 1e3:.1f} us (median of {REPS}), plain "
+        f"{plain_ms * 1e3:.1f} us, {nbytes} B moved, bound "
+        f"{bound_ms * 1e3:.1f} us ({bound_by}), "
+        f"{100 * bound_ms / ms:.1f}% of bound, max|err| {err:.3g}")
+    return dict(info, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes)
+
+
+def _table_row(kernel, launches, results, main, **extra):
+    """The kernel's entry of the JSON line: its main-path shape's numbers
+    and every shape's times."""
+    m = results[main]
+    return {
+        "name": KERNELS[kernel][0], "route": "cuda",
+        "source": f"src/repro_torch/kernels/csrc/{KERNELS[kernel][1]}",
+        "replaces": KERNELS[kernel][2],
+        "launches": launches.get(LAUNCH_NAME[kernel], 0),
+        "max_abs_err": max(r["max_abs_err"] for r in results.values()),
+        "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+        "bound_by": m["bound_by"], "library_ms": None,
+        "rows": m["rows"], "capacity": m["capacity"], **extra,
+        "shapes": {k: {kk: v[kk] for kk in ("rows", "ms", "plain_ms",
+                                            "bound_ms")}
+                   for k, v in results.items()},
+    }
+
+
+def scan_kernel_phase(torch, dev, state, launches, flush):
     from repro_torch.core.engine import QueryEngine
     from repro_torch.exec import lower
     from repro_torch.exec.batch import bucket_capacity, from_numpy
@@ -263,6 +473,7 @@ def kernel_phase(torch, dev, state, launches):
     from repro_torch.kernels import filter_agg as fa
     from repro_torch.kernels import groupby_onehot as go
     from repro_torch.kernels import segmented_minmax as smm
+    from repro_torch.kernels.program import eval_slot, for_columns
     from repro_torch.sql.queries import QUERIES
 
     plain = {"filter_agg": fa.fused_filter_agg_plain,
@@ -273,7 +484,6 @@ def kernel_phase(torch, dev, state, launches):
                          platform=session.platform, handler=session.handler)
     sqls = {"filter_agg": QUERIES["q6"], "groupby_onehot": QUERIES["q1"],
             "segmented_minmax": MINMAX_SQL}
-    flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)   # 256 MiB
     n_total = len(lineitem["l_orderkey"])
     table = []
     for kernel, sql in sqls.items():
@@ -283,70 +493,232 @@ def kernel_phase(torch, dev, state, launches):
         prog, tiling = m.program, m.tiling
         wrapper = getattr(ops, KERNELS[kernel][0])
         names = list(prog.names)
-        main_rows = state["rows"][kernel]
         results = {}
-        for label, n in (("2^20", min(1 << 20, n_total)),
-                         ("main", main_rows), ("all", n_total)):
+        for label, n in _sizes(n_total, state["rows"][kernel]):
             blk = from_numpy({c: lineitem[c][:n] for c in names},
                              bucket_capacity(n), dev)
             cols, mask = blk.columns, blk.mask
-            got = wrapper(cols, mask, program=prog, tiling=tiling)
-            want = plain[kernel](cols, mask, program=prog)
-            torch.cuda.synchronize()
-            err = _compare(kernel, got, want, f"{kernel} {label}")
-            ms = _time_ms(torch, lambda: wrapper(cols, mask, program=prog,
-                                                 tiling=tiling), flush)
-            plain_ms = _time_ms(torch, lambda: plain[kernel](
-                cols, mask, program=prog), flush, reps=5)
-            nbytes, bound_ms, bound_by = _bound(prog, cols, mask,
-                                                got.numel())
-            results[label] = dict(rows=n, capacity=mask.numel(),
-                                  max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                  bound_ms=bound_ms, bound_by=bound_by,
-                                  bytes=nbytes)
-            log(f"kernel {kernel} {label}: {n} rows (capacity "
-                f"{mask.numel()}), {ms * 1e3:.1f} us (median of {REPS}), "
-                f"plain {plain_ms * 1e3:.1f} us, {nbytes} B moved, bound "
-                f"{bound_ms * 1e3:.1f} us ({bound_by}), "
-                f"{100 * bound_ms / ms:.1f}% of bound, max|err| {err:.3g}")
+
+            def bound(got):
+                # the mask over the capacity, each program column over
+                # the valid rows, the output once
+                n_valid = int(mask.sum())
+                typed = for_columns(prog, cols)
+                n_pass = int((mask & (eval_slot(typed, 0, cols) != 0))
+                             .sum()) if prog.has_pred else n_valid
+                width = sum(cols[c].element_size() for c in names)
+                return _bound(mask.numel() + n_valid * width
+                              + got.numel() * 8,
+                              _program_work(prog, n_valid, n_pass))
+            results[label] = _hold(
+                torch, flush, f"{kernel} {label}",
+                lambda: wrapper(cols, mask, program=prog, tiling=tiling),
+                lambda: plain[kernel](cols, mask, program=prog),
+                _compare, bound, dict(rows=n, capacity=mask.numel()))
             del blk, cols, mask
         # the all-masked block and (for grouped kernels) empty groups
         n = 1 << 16
         blk = from_numpy({c: lineitem[c][:n] for c in names}, n, dev)
         cols = blk.columns
         none = torch.zeros(n, dtype=torch.bool, device=dev)
-        _compare(kernel, wrapper(cols, none, program=prog,
-                                 tiling=tiling),
+        _compare(wrapper(cols, none, program=prog, tiling=tiling),
                  plain[kernel](cols, none, program=prog),
                  f"{kernel} all-masked")
         if prog.n_groups:
-            first = m.group_cols[0]
-            some = blk.mask & (cols[first] == 0)
+            some = blk.mask & (cols[m.group_cols[0]] == 0)
             got = wrapper(cols, some, program=prog, tiling=tiling)
             if not bool((got[:, -1] == 0).any()):
                 raise AssertionError(f"{kernel}: no empty group in the "
                                      "empty-group case")
-            _compare(kernel, got, plain[kernel](cols, some,
-                                                program=prog),
+            _compare(got, plain[kernel](cols, some, program=prog),
                      f"{kernel} empty groups")
         log(f"kernel {kernel}: all-masked"
             f"{' and empty-group' if prog.n_groups else ''} cases = plain")
-        main = results["main"]
-        table.append({
-            "name": KERNELS[kernel][0], "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{KERNELS[kernel][1]}",
-            "replaces": KERNELS[kernel][2],
-            "launches": launches.get(LAUNCH_NAME[kernel], 0),
-            "max_abs_err": max(r["max_abs_err"] for r in results.values()),
-            "ms": main["ms"], "plain_ms": main["plain_ms"],
-            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-            "library_ms": None,
-            "rows": main["rows"], "capacity": main["capacity"],
-            "shapes": {k: {kk: v[kk] for kk in ("rows", "ms", "plain_ms",
-                                                "bound_ms")}
-                       for k, v in results.items()},
-        })
+        table.append(_table_row(kernel, launches, results, "main"))
     return table
+
+
+def _prepass(lower, xops, m, bcols, bmask):
+    """The join arm's build-side prepass: build predicates, sort by key
+    (masked rows last under the sentinel), payload gathered in order."""
+    pred = lower._compile_pred(m.build_preds)
+    if pred is not None:
+        bmask = bmask & pred(bcols)
+    sk, order = xops.sort_build_side(bcols, bmask, m.build_key)
+    spay = {c: bcols[c][order] for c in m.payload if c in m.program.names}
+    return sk, spay
+
+
+def join_kernel_phase(torch, dev, state, launches, flush):
+    import numpy as np
+    from repro_torch.core.engine import QueryEngine
+    from repro_torch.exec import lower
+    from repro_torch.exec import operators as xops
+    from repro_torch.exec.batch import bucket_capacity, from_numpy
+    from repro_torch.kernels import join_probe as jp
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.program import eval_slot, for_columns
+    from repro_torch.sql.queries import QUERIES
+
+    session, tables = state["session"], state["tables"]
+    lineitem = tables["lineitem"]
+    engine = QueryEngine(session.store, state["catalog"],
+                         platform=session.platform, handler=session.handler)
+    n_total = len(lineitem["l_orderkey"])
+    sentinel = np.iinfo(np.int64).max
+    kind = "join_probe_agg"
+    results, prepass = {}, {}
+    for q, build in (("q12", "orders"), ("q14", "part"), ("q19", "part")):
+        plan = engine.plan_sql(QUERIES[q])
+        m = next(lower.match_fragment(p.op) for p in plan.pipelines.values()
+                 if p.kernel == kind)
+        prog, tiling = m.program, m.tiling
+        bnames = sorted({m.build_key} | {c for c in m.payload
+                                         if c in prog.names})
+        nb = len(tables[build][m.build_key])
+        bblk = from_numpy({c: tables[build][c] for c in bnames},
+                          bucket_capacity(nb), dev)
+        sk, spay = _prepass(lower, xops, m, bblk.columns, bblk.mask)
+        prepass[q] = _time_ms(torch, lambda: _prepass(
+            lower, xops, m, bblk.columns, bblk.mask), flush)
+        log(f"join prepass {q}: sort of {nb} build keys (capacity "
+            f"{bblk.capacity}) + payload gather {prepass[q] * 1e3:.1f} us "
+            f"(median of {REPS})")
+        pnames = sorted({c for c in prog.names if c not in spay}
+                        | {m.probe_key})
+
+        def call(cols, mask, keys=sk, pay=spay):
+            return ops.fused_join_probe_agg(cols, mask, keys, pay,
+                                            probe_key=m.probe_key,
+                                            program=prog, tiling=tiling)
+
+        def plain(cols, mask, keys=sk, pay=spay):
+            return jp.fused_join_probe_agg_plain(cols, mask, keys, pay,
+                                                 probe_key=m.probe_key,
+                                                 program=prog)
+        for label, n in _sizes(n_total, state["join_rows"][q]):
+            blk = from_numpy({c: lineitem[c][:n] for c in pnames},
+                             bucket_capacity(n), dev)
+            cols, mask = blk.columns, blk.mask
+            # rows that hit the build side, and that pass the program
+            pk = cols[m.probe_key]
+            pos = torch.searchsorted(sk, pk).clamp(0, sk.numel() - 1)
+            hit = (sk[pos] == pk) & mask & (pk != sentinel)
+            typed = for_columns(prog, cols, spay)
+            jcols = dict(cols, **{c: v[pos] for c, v in spay.items()})
+            passed = hit & (eval_slot(typed, 0, jcols) != 0) \
+                if typed.has_pred else hit
+
+            def bound(got):
+                # the mask over the capacity, the key and the probe
+                # columns over the valid rows, the sorted keys and the
+                # payload once, the output; the program on the hits. The
+                # search's repeated L2 reads are not counted.
+                n_valid = int(mask.sum())
+                width = sum(cols[c].element_size() for c in pnames)
+                nbytes = mask.numel() + n_valid * width + sk.numel() * 8 \
+                    + sum(v.numel() * v.element_size()
+                          for v in spay.values()) + got.numel() * 8
+                return _bound(nbytes, _program_work(
+                    prog, int(hit.sum()), int(passed.sum())))
+            results[f"{q} {label}"] = _hold(
+                torch, flush, f"{kind} {q} {label}",
+                lambda: call(cols, mask), lambda: plain(cols, mask),
+                _compare, bound, dict(rows=n, capacity=mask.numel(),
+                                      build_rows=nb, hits=int(hit.sum())))
+            del blk, cols, mask, pk, pos, hit, jcols, passed
+        # edge cases: an all-masked probe block, probe keys equal to the
+        # sentinel, a build side with every key masked (no hits)
+        n = 1 << 16
+        blk = from_numpy({c: lineitem[c][:n] for c in pnames}, n, dev)
+        cols = blk.columns
+        none = torch.zeros(n, dtype=torch.bool, device=dev)
+        _compare(call(cols, none), plain(cols, none),
+                 f"{kind} {q} all-masked")
+        skey = dict(cols, **{m.probe_key: torch.full_like(
+            cols[m.probe_key], sentinel)})
+        _compare(call(skey, blk.mask), plain(skey, blk.mask),
+                 f"{kind} {q} sentinel keys")
+        nsk, npay = _prepass(lower, xops, m, bblk.columns,
+                             torch.zeros_like(bblk.mask))
+        got = call(cols, blk.mask, nsk, npay)
+        if prog.n_groups and bool(got[:, -1].any()):
+            raise AssertionError(f"{kind} {q}: hits on a masked build")
+        _compare(got, plain(cols, blk.mask, nsk, npay),
+                 f"{kind} {q} masked build")
+        _sync(torch)
+        log(f"kernel {kind} {q}: all-masked, sentinel-key and masked-build "
+            f"cases = plain")
+        del blk, bblk, sk, spay
+    return _table_row(kind, launches, results, "q12 main",
+                      prepass_ms=prepass)
+
+
+def bloom_kernel_phase(torch, dev, state, launches, flush):
+    import numpy as np
+    from repro_torch.exec.batch import bucket_capacity, from_numpy
+    from repro_torch.kernels import bloom, ops
+    from repro_torch.analysis import roofline
+
+    lineitem, orders = state["lineitem"], state["tables"]["orders"]
+    tiling = roofline.bloom_probe_tiling()
+    n_total = len(lineitem["l_orderkey"])
+    spec = state["bloom_spec"]
+    key = spec["semijoin"]["key"][0]
+    f = bloom.bloom_from_wire(spec["semijoin"])
+    main_words = bloom.words_tensor(f["words"], dev)
+    kind = "bloom_filter"
+
+    def call(keys, mask, words=main_words, bits=f["bits"]):
+        return ops.fused_bloom_filter(keys, mask, words=words, bits=bits,
+                                      k=f["k"], tiling=tiling)
+
+    def plain(keys, mask, words=main_words, bits=f["bits"]):
+        return bloom.fused_bloom_filter_plain(keys, mask, words=words,
+                                              bits=bits, k=f["k"])
+    results = {}
+    for label, n in _sizes(n_total, state["bloom_rows"]):
+        blk = from_numpy({key: lineitem[key][:n]}, bucket_capacity(n), dev)
+        keys, mask = blk.columns[key], blk.mask
+
+        def bound(got):
+            # bytes: mask and verdict over the capacity, the key over the
+            # valid rows, the words once; operations: two fmix32 (5
+            # each) and up to k word tests (6 each) per valid row, on
+            # 32-bit integers
+            n_valid = int(mask.sum())
+            return _bound(mask.numel() + got.numel() * got.element_size()
+                          + n_valid * keys.element_size()
+                          + main_words.numel() * 4,
+                          n_valid * (10 + 6 * f["k"]), INT32_OPS)
+        results[label] = _hold(
+            torch, flush, f"{kind} {label}", lambda: call(keys, mask),
+            lambda: plain(keys, mask), _equal, bound,
+            dict(rows=n, capacity=mask.numel(), bits=f["bits"]))
+        del blk, keys, mask
+    # edge cases: negative keys and keys ≥ 2^32 (truncated mod 2^32),
+    # filters of 2^10 and 2^22 bits, an all-masked block
+    base = lineitem[key][:1 << 20].astype(np.int64)
+    q = base.size // 4
+    odd = np.concatenate([-base[:q], base[:q] + (1 << 32),
+                          base[:q] - (1 << 40), base[:base.size - 3 * q]
+                          * 7919])
+    keys = torch.from_numpy(odd).to(dev)
+    mask = torch.ones(odd.size, dtype=torch.bool, device=dev)
+    members = orders["o_orderkey"][::3].astype(np.uint32)
+    for bits in (1 << 10, 1 << 22):
+        words = bloom.bloom_build(members, bits)
+        w = bloom.words_tensor(words, dev)
+        got = call(keys, mask, w, bits)
+        _equal(got, plain(keys, mask, w, bits), f"{kind} {bits} bits")
+        host = bloom.bloom_probe_np(odd.astype(np.uint32), words, bits)
+        if not np.array_equal(got.cpu().numpy(), host):
+            raise AssertionError(f"{kind} {bits} bits: != host probe")
+    _equal(call(keys, torch.zeros_like(mask)),
+           plain(keys, torch.zeros_like(mask)), f"{kind} all-masked")
+    log(f"kernel {kind}: negative and >= 2^32 keys at 2^10 and 2^22 bits "
+        f"(= plain = host probe), all-masked = plain")
+    return _table_row(kind, launches, results, "main", bits=f["bits"])
 
 
 if __name__ == "__main__":

@@ -12,6 +12,14 @@ is different: the per-CTA shared-memory working set (the (K, A+1) f64
 group tile, or the per-warp partials of the ungrouped reduction), and
 from it how many CTAs fit on an SM, which fixes the grid.
 
+The reference also kept the join's sorted build side and the Bloom
+filter's words resident in VMEM and capped their size by it. Neither
+fits a block's shared memory here (the SF-1 Q12 build side is 1.5 M
+rows × 16 B ≈ 24 MB, the SF-1 filter 256 KiB): both kernels read them
+from global memory through the 50 MB L2. So no memory budget caps the
+join's build side; the kernel's own limit is its uint32 positions
+(``JOIN_MAX_BUILD_ROWS``), and its wrapper raises past it.
+
 Constants: NVIDIA H100 SXM5 80 GB (data sheet and Hopper tuning guide):
 132 SMs, 227 KB of shared memory usable by one block out of 228 KB per
 SM, 2048 resident threads per SM, 3.35 TB/s HBM3, 34 TFLOP/s FP64 on
@@ -23,6 +31,7 @@ grid to the SM count it finds, so only the balance point would move.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 H100_SXM = {
     "name": "H100 SXM5 80GB",
@@ -40,6 +49,8 @@ _ACC_BYTES = 8          # f64 accumulators
 _COL_BYTES = 8          # upper bound of one column lane (i64/f64)
 _MASK_BYTES = 1         # bool validity mask
 _SMEM_RESERVED = 1024   # per-CTA shared memory the runtime keeps
+_KEY_BYTES = 8          # int64 join keys
+JOIN_MAX_BUILD_ROWS = 1 << 31   # the join kernel's uint32 build positions
 
 
 def machine_balance() -> float:
@@ -113,10 +124,15 @@ def _finish(kernel: str, smem: int, flops_per_row: float,
                         flops_per_row, bytes_per_row, ai, dominant)
 
 
+def _warp_partials_bytes(n_aggs: int) -> int:
+    """Shared memory of the ungrouped reduction: A f64 per warp."""
+    return _WARPS * max(n_aggs, 1) * _ACC_BYTES
+
+
 def filter_agg_tiling(*, n_cols: int, n_aggs: int) -> KernelTiling:
     """scan→filter→agg: each thread folds its rows into A registers; the
     CTA reduces per-warp partials through shared memory."""
-    smem = _WARPS * max(n_aggs, 1) * _ACC_BYTES
+    smem = _warp_partials_bytes(n_aggs)
     flops = 4.0 * n_aggs + 2.0 * n_cols          # pred eval + accumulate
     bpr = float(n_cols * _COL_BYTES + _MASK_BYTES)
     return _finish("filter_agg", smem, flops, bpr)
@@ -141,6 +157,35 @@ def groupby_tiling(kernel: str, *, n_cols: int, n_aggs: int,
     flops = 2.0 * (n_aggs + 1) + 2.0 * n_cols    # pred/gid eval + update
     bpr = float(n_cols * _COL_BYTES + _MASK_BYTES)
     return _finish(kernel, smem, flops, bpr)
+
+
+def join_probe_tiling(*, n_cols: int, n_payload: int, n_aggs: int,
+                      n_groups: int) -> KernelTiling:
+    """Fused join probe + aggregation: one thread per probe row binary-
+    searches the sorted build keys in global memory (L2-resident at
+    SF 1), gathers the payload of its hit, and folds into the grouped
+    tile or the per-thread accumulators of the scan kernels. The build
+    side does not bound the grid."""
+    smem = (group_tile_bytes(n_groups, n_aggs) if n_groups
+            else _warp_partials_bytes(n_aggs))
+    # log2(B) search compares at the cap, the expression program, the
+    # aggregate update
+    flops = (2.0 * math.log2(JOIN_MAX_BUILD_ROWS) + 2.0 * (n_aggs + 1)
+             + 2.0 * n_cols)
+    bpr = float((n_cols + 1) * _COL_BYTES + _MASK_BYTES
+                + n_payload * _COL_BYTES)
+    return _finish("join_probe_agg", smem, flops, bpr)
+
+
+def bloom_probe_tiling() -> KernelTiling:
+    """In-kernel semi-join Bloom probe: one thread per row, two fmix32
+    mixes and up to k = 6 word reads from the filter in global memory
+    (at most 512 KiB, ``kernels.bloom.BLOOM_MAX_BITS``: L2-resident).
+    It reads the key and the predicate's mask and writes one byte per
+    row, whatever the scan's width or the filter's size."""
+    flops = 2 * 5.0 + 6 * 6.0
+    bpr = float(_KEY_BYTES + _MASK_BYTES + 1)
+    return _finish("bloom_filter", 0, flops, bpr)
 
 
 def onehot_group_capacity(n_aggs: int = 4) -> int:

@@ -11,13 +11,16 @@ columns' device (a 0-dim float64 tensor lifts an integer column to
 float64, and leaves a float column's width alone, as a weak JAX literal
 does), and ``/`` of two integer operands divides in float64 when they
 promote to int64 and in float32 otherwise (``int32 / 7`` is float32 in
-JAX too).
+JAX too), and by a literal as ``x * (1 / c)``, as the jitted reference
+runs it: ``kernels.common.true_divide``, the rule the kernel programs
+share.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.common import true_divide
 from repro_torch.sql import ast
 
 
@@ -46,20 +49,6 @@ def _literal(value):
     return lit
 
 
-def _integral(x) -> bool:
-    return isinstance(x, torch.Tensor) and not x.is_floating_point()
-
-
-def _div(a, b):
-    """True division with JAX's result type: two integer operands divide
-    in float64 when they promote to int64, else in float32."""
-    if _integral(a) and _integral(b):
-        wide = torch.result_type(a, b) == torch.int64
-        dtype = torch.float64 if wide else torch.float32
-        return a.to(dtype) / b.to(dtype)
-    return a / b
-
-
 def compile_expr(e: ast.Expr):
     """Compile to a function of a column dict (values: torch tensors)."""
     if isinstance(e, ast.Col):
@@ -77,7 +66,7 @@ def compile_expr(e: ast.Expr):
         if op == "*":
             return lambda cols: lf(cols) * rf(cols)
         if op == "/":
-            return lambda cols: _div(lf(cols), rf(cols))
+            return lambda cols: true_divide(lf(cols), rf(cols))
         raise ValueError(op)
     if isinstance(e, ast.Cmp):
         lf, rf = compile_expr(e.left), compile_expr(e.right)

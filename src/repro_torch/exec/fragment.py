@@ -156,12 +156,24 @@ def _build(op: dict, leaves: list[tuple[str, dict]]):
             return f(cols, mask)
         return run_agg
     if t == "semijoin_probe":
-        # the device Bloom probe (the reference's fused_bloom_filter and
-        # its jnp fallback) comes with the join slice of the port
-        raise NotImplementedError(
-            "semijoin_probe: the device Bloom probe (fused_bloom_filter) "
-            "is not ported yet: it comes with the port's join slice "
-            "(slice 2)")
+        # generic arm of the fused Bloom probe (exec.lower's
+        # ``bloom_filter`` arm): same hash family, same reserved
+        # ``__bloom_pass`` column, bit for bit. The filter words arrive
+        # through the runtime ``__bloom`` pseudo-leaf, so the cached
+        # program never holds a query's filter contents.
+        child = _build(op["child"], leaves)
+        key, bits, k = op["key"], int(op["bits"]), int(op["k"])
+        leaves.append(("__bloom", {"t": "bloom_words"}))
+
+        def run_semijoin(blocks):
+            cols, mask = child(blocks)
+            words = blocks["__bloom"][0]["words"]
+            hit = bloomlib.bloom_probe_plain(cols[key], words, bits,
+                                             k) & mask
+            out = dict(cols)
+            out["__bloom_pass"] = hit.to(torch.int32)
+            return out, mask
+        return run_semijoin
     if t == "join":
         probe = _build(op["probe"], leaves)
         build = _build(op["build"], leaves)
@@ -432,17 +444,19 @@ def execute_fragment(store: ObjectStore, spec: dict,
         return handlers[tier]
 
     # Semi-join filter pushdown: a probe-side spec may carry the build
-    # side's published Bloom filter. On the card a kernel-eligible filter
-    # (single truncated-integer key) wraps the op tree, as the reference
-    # does, so its membership test runs in the scan program; that device
-    # probe is not ported yet, so such a fragment raises in ``_build``
-    # rather than probe on the host. On the CPU, and for other key shapes
-    # (which the reference also probes on the host), rows die below.
+    # side's published Bloom filter. Kernel-eligible filters (single
+    # truncated-integer key over a scan → [filter…] chain, the Bloom
+    # arm's shape) wrap the op tree for dispatch only — the wrapper joins
+    # the compiled-program cache key, never the semantic hash — so the
+    # membership test runs in the scan program (the CUDA kernel, or its
+    # plain version on the CPU, or the generic arm when dispatch is off);
+    # other key and chain shapes kill on the host below. (The reference
+    # also wraps project-rooted chains; its generic arm probes them with
+    # the same hash family, so the rows killed are the same.)
     op = spec["op"]
     sj = spec.get("semijoin")
-    if device.type == "cuda" and sj is not None \
-            and sj.get("mode") == "u32" and len(sj["key"]) == 1 \
-            and op.get("t") in ("scan_table", "filter", "project"):
+    if sj is not None and sj.get("mode") == "u32" and len(sj["key"]) == 1 \
+            and lower.bloom_probe_chain(op):
         op = {"t": "semijoin_probe", "key": sj["key"][0],
               "bits": int(sj["bits"]), "k": int(sj["k"]), "child": op}
     fn, leaves, kernel, fn_key = _compiled(op)
@@ -451,6 +465,9 @@ def execute_fragment(store: ObjectStore, spec: dict,
     # 1. Load leaf inputs (host side, ranged + pruned + re-triggered reads).
     tables = []
     for leaf_id, leaf_op in leaves:
+        if leaf_op["t"] == "bloom_words":
+            tables.append((leaf_id, None, 0))
+            continue
         if leaf_op["t"] == "scan_table":
             cols = _load_scan_table(handler_for(None), spec, leaf_op,
                                     stats)
@@ -467,6 +484,12 @@ def execute_fragment(store: ObjectStore, spec: dict,
     with _device_scope(device) as sync:
         blocks = {}
         for leaf_id, cols, n in tables:
+            if cols is None:        # the filter words, uploaded once
+                words = np.frombuffer(sj["words"], dtype=np.uint32)
+                blocks[leaf_id] = (
+                    {"words": bloomlib.words_tensor(words, device)},
+                    torch.ones((1,), dtype=torch.bool, device=device))
+                continue
             blk = from_numpy(cols, bucket_capacity(n), device)
             blocks[leaf_id] = (blk.columns, blk.mask)
         _warm(fn, fn_key, blocks, sync)
@@ -477,11 +500,17 @@ def execute_fragment(store: ObjectStore, spec: dict,
         stats.compute_s += time.perf_counter() - t0
         result = to_numpy(Block(dict(out_cols), out_mask))
 
-    # 2b. Semi-join kill before partitioning, where the filter was not
-    # wrapped into the program above: the host probes it. The count is
-    # exact against the predicate-surviving stream, and the killed rows
-    # never reach the exchange write.
-    if sj is not None and all(c in result for c in sj["key"]):
+    # 2b. Semi-join kill before partitioning: the program emitted a
+    # per-row Bloom verdict (``__bloom_pass``), or — for multi-column /
+    # non-integer keys — the host probes the filter directly. Either way
+    # the count is exact against the predicate-surviving stream, and the
+    # killed rows never reach the exchange write.
+    if "__bloom_pass" in result:
+        hit = result.pop("__bloom_pass") != 0
+        stats.semijoin_killed = int(hit.size - hit.sum())
+        if stats.semijoin_killed:
+            result = {c: v[hit] for c, v in result.items()}
+    elif sj is not None and all(c in result for c in sj["key"]):
         filt = bloomlib.bloom_from_wire(sj)
         ku = bloomlib.keys_u32(result, list(sj["key"]), filt["mode"])
         hit = bloomlib.bloom_probe_np(ku, filt["words"], filt["bits"],

@@ -19,9 +19,20 @@ one-pass vectorized worker loop):
         aggregate is a sum/count (TPC-H Q1), else
         :func:`~repro_torch.kernels.ops.fused_groupby_minmax`.
 
-The ``sort_agg``, ``join_probe_agg``, ``topk`` and ``bloom_filter`` arms
-match the same shapes as the reference but miss with ``kernel <name> not
-yet ported``; their kernels come with later slices of the port.
+  ``join(probe=[filter…]→scan, build=[filter…]→scan) → [filter…] →
+  partial_agg`` (direct)
+      → :func:`repro_torch.kernels.ops.fused_join_probe_agg`: the build
+        side sorted by key in a torch prepass, then one kernel probes,
+        gathers the payload, filters and aggregates (TPC-H Q12/Q14/Q19).
+
+  ``semijoin_probe`` over ``[filter…]→scan`` (a probe-side scan carrying
+  a u32 Bloom filter)
+      → :func:`repro_torch.kernels.ops.fused_bloom_filter`, after the
+        scan's predicate on the generic torch ops, as the reference does.
+
+The ``sort_agg`` and ``topk`` arms match the same shapes as the
+reference but miss with ``kernel <name> not yet ported``; their kernels
+come with a later slice of the port.
 
 A kernel cannot call a Python closure, so the predicate, the aggregate
 arguments and the group id compile to one postfix program
@@ -47,6 +58,8 @@ import numpy as np
 import torch
 
 from repro_torch.analysis import roofline
+from repro_torch.exec import operators as xops
+from repro_torch.exec.expr import compile_expr, expr_from_dict
 from repro_torch.exec.operators import decode_group_ids, mixed_radix_strides
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.program import Program, ProgramError, \
@@ -190,8 +203,11 @@ def _match_final(op: dict):
 
 
 def _match_semijoin(op: dict):
-    """``semijoin_probe`` wrapper: the scan chain's predicate fused with
-    the in-kernel Bloom membership test (not yet ported)."""
+    """``semijoin_probe`` wrapper (attached by the fragment executor when a
+    probe-side spec carries a kernel-eligible Bloom filter): the scan
+    chain's predicate, then the in-kernel Bloom membership test. The
+    filter words arrive as the runtime ``__bloom`` pseudo-leaf, so one
+    program serves every filter of the same shape."""
     key = op["key"]
     preds, child = _peel_filters(op["child"])
     if child.get("t") not in _LEAF_OPS:
@@ -203,7 +219,15 @@ def _match_semijoin(op: dict):
     if child["t"] == "scan_table" and not needed <= set(child["columns"]):
         missing = sorted(needed - set(child["columns"]))
         return None, f"columns {missing} absent from scan"
-    return _not_ported("bloom_filter")
+    return Match("bloom_filter", child, preds, [], [], [],
+                 roofline.bloom_probe_tiling(), probe_key=key,
+                 bloom_bits=int(op["bits"]), bloom_k=int(op["k"])), None
+
+
+def bloom_probe_chain(op: dict) -> bool:
+    """Whether a probe-side op tree is the scan → [filter…] chain the
+    ``bloom_filter`` arm takes (the fragment executor wraps no other)."""
+    return _peel_filters(op)[1].get("t") in _LEAF_OPS
 
 
 def _match_agg(op: dict):
@@ -303,7 +327,21 @@ def _match_join(op, join, preds, needed, group_cols, sizes, aggs, K):
         if not bneeded <= set(build_leaf["columns"]):
             missing = sorted(bneeded - set(build_leaf["columns"]))
             return None, f"columns {missing} absent from build scan"
-    return _not_ported("join_probe_agg")
+    try:
+        program = compile_program(
+            probe_preds + preds, [(fn, arg) for _, fn, arg in aggs],
+            group_cols=group_cols, strides=mixed_radix_strides(sizes),
+            n_groups=K)
+    except ProgramError as e:
+        return None, f"expression not runnable in a kernel: {e}"
+    tiling = roofline.join_probe_tiling(
+        n_cols=_leaf_width(probe_leaf, len(needed)),
+        n_payload=len(payload), n_aggs=len(aggs), n_groups=K)
+    return Match("join_probe_agg", probe_leaf, preds, group_cols, sizes,
+                 aggs, tiling, build_leaf=build_leaf,
+                 probe_preds=probe_preds, build_preds=build_preds,
+                 probe_key=probe_key, build_key=build_key,
+                 payload=payload, program=program), None
 
 
 def match_fragment(op: dict) -> Match | None:
@@ -370,7 +408,26 @@ def lower_fragment(op: dict) -> Lowered | None:
     m = match_fragment(op)
     if m is None:
         return None
+    if m.kernel == "join_probe_agg":
+        return _lower_join_probe(m)
+    if m.kernel == "bloom_filter":
+        return _lower_bloom_filter(m)
     return _lower_direct_agg(m)
+
+
+def _compile_pred(preds: list[dict]):
+    """The conjunction of ``preds`` on the generic torch ops (None if
+    there is none)."""
+    if not preds:
+        return None
+    fns = [compile_expr(expr_from_dict(p)) for p in preds]
+
+    def pred(cols):
+        out = fns[0](cols)
+        for f in fns[1:]:
+            out = out & f(cols)
+        return out
+    return pred
 
 
 def _lower_direct_agg(m: Match) -> Lowered:
@@ -405,3 +462,65 @@ def _lower_direct_agg(m: Match) -> Lowered:
             out[name] = tile[:, j]
         return out, tile[:, -1] > 0
     return Lowered(fn, leaves, m.kernel, m.tiling)
+
+
+def _lower_join_probe(m: Match) -> Lowered:
+    """Build side: its predicates on the generic ops, then the torch sort
+    prepass (``operators.sort_build_side``, outside the kernel as the
+    reference sorts in XLA). Probe side: one kernel call running the
+    probe and residual predicates (``probe_preds + preds``), the group
+    id and the aggregates over the probe rows and the hits' payload."""
+    build_pred = _compile_pred(m.build_preds)
+    program, tiling = m.program, m.tiling
+    K = program.n_groups
+    group_cols, sizes = list(m.group_cols), list(m.sizes)
+    agg_names = [name for name, _, _ in m.aggs]
+    probe_key, build_key = m.probe_key, m.build_key
+    payload = [c for c in m.payload if c in program.names]
+    leaves = [("in0", m.leaf), ("in1", m.build_leaf)]
+
+    def fn(blocks):
+        pcols, pmask = blocks["in0"]
+        bcols, bmask = blocks["in1"]
+        if build_pred is not None:
+            bmask = bmask & build_pred(bcols)
+        sk, order = xops.sort_build_side(bcols, bmask, build_key)
+        spay = {c: bcols[c][order] for c in payload if c not in pcols}
+        res = kops.fused_join_probe_agg(pcols, pmask, sk, spay,
+                                        probe_key=probe_key,
+                                        program=program, tiling=tiling)
+        if not K:
+            out = {name: res[j].reshape(1)
+                   for j, name in enumerate(agg_names)}
+            return out, torch.ones((1,), dtype=torch.bool,
+                                   device=pmask.device)
+        out = dict(decode_group_ids(group_cols, sizes, K, pmask.device))
+        for j, name in enumerate(agg_names):
+            out[name] = res[:, j]
+        return out, res[:, -1] > 0
+    return Lowered(fn, leaves, m.kernel, m.tiling)
+
+
+def _lower_bloom_filter(m: Match) -> Lowered:
+    """Probe-side scan chain with the Bloom membership test in the
+    kernel. The program keeps the generic mask semantics (predicate-
+    surviving rows stay valid) and emits the verdict as the reserved
+    ``__bloom_pass`` column, so the fragment executor counts killed rows
+    exactly and compacts before partitioning; the generic arm
+    (``fragment._build``'s ``semijoin_probe``) emits the same column."""
+    pred = _compile_pred(m.preds)
+    key, bits, k, tiling = m.probe_key, m.bloom_bits, m.bloom_k, m.tiling
+    leaf_id = "in0"
+
+    def fn(blocks):
+        cols, mask = blocks[leaf_id]
+        words = blocks["__bloom"][0]["words"]
+        m2 = mask if pred is None else mask & pred(cols)
+        hit = kops.fused_bloom_filter(cols[key], m2, words=words, bits=bits,
+                                      k=k, tiling=tiling)
+        out = dict(cols)
+        out["__bloom_pass"] = hit.to(torch.int32)
+        return out, m2
+    return Lowered(fn, [(leaf_id, m.leaf),
+                        ("__bloom", {"t": "bloom_words"})],
+                   m.kernel, m.tiling)

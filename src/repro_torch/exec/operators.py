@@ -26,11 +26,8 @@ INT64_SENTINEL = np.iinfo(np.int64).max
 
 Cols = dict[str, torch.Tensor]
 
-_JOIN_SLICE = ("not ported yet: the generic join and sort arrive with the "
-               "port's join slice (slice 2)")
 
-
-# -- hashing (numpy; the device twin arrives with the join slice) ---------------
+# -- hashing (numpy: exchange destinations are computed on the host) ------------
 
 _M1 = 0xBF58476D1CE4E5B9
 _M2 = 0x94D049BB133111EB
@@ -162,10 +159,75 @@ def make_direct_agg(group_cols: list[str], sizes: list[int],
     return op, K
 
 
+def lexsort_order(keys: list[torch.Tensor]) -> torch.Tensor:
+    """Stable lexicographic order of rows by ``keys`` (first key most
+    significant), ties in row order, as ``np.lexsort(keys[::-1])``: one
+    stable sort pass per key, last key first."""
+    order = torch.arange(keys[0].shape[0], device=keys[0].device)
+    for k in reversed(keys):
+        order = order[torch.sort(k[order], stable=True).indices]
+    return order
+
+
+def _segment_keys(keys, seg, n: int):
+    """``segment_min`` of int64 keys into n segments: empty segments keep
+    INT64_SENTINEL (the int64 identity of min)."""
+    out = torch.full((n,), INT64_SENTINEL, dtype=KEY_DTYPE,
+                     device=keys.device)
+    return out.scatter_reduce_(0, seg, keys, "amin", include_self=True)
+
+
 def make_sort_agg(group_cols: list[str],
                   aggs: list[tuple[str, str, ast.Expr | None]]):
-    """General grouped aggregation (sort + segment reduce)."""
-    raise NotImplementedError(f"make_sort_agg is {_JOIN_SLICE}")
+    """General grouped aggregation: lexicographic sort + segment reduce.
+
+    Output capacity equals input capacity (#groups ≤ #rows); invalid rows
+    sort last via a leading invalid flag and produce masked-out segments.
+    Empty segments hold INT64_SENTINEL keys, 0 sums and counts, ±inf
+    min/max and a false mask.
+    """
+    agg_fns = [(name, fn, compile_expr(arg) if arg is not None else None)
+               for name, fn, arg in aggs]
+
+    def op(cols: Cols, mask):
+        n = int(mask.shape[0])
+        inv = (~mask).to(torch.int32)
+        keys = [cols[c].to(KEY_DTYPE) for c in group_cols]
+        order = lexsort_order([inv] + keys)
+        s_inv = inv[order]
+        s_keys = [k[order] for k in keys]
+        s_mask = mask[order]
+        diff = s_inv[1:] != s_inv[:-1]
+        for k in s_keys:
+            diff = diff | (k[1:] != k[:-1])
+        flags = torch.cat([torch.ones((1,), dtype=torch.bool,
+                                      device=mask.device), diff])
+        seg = torch.cumsum(flags, 0) - 1
+        out: Cols = {}
+        for c, k in zip(group_cols, s_keys):
+            out[c] = _segment_keys(
+                torch.where(s_mask, k, INT64_SENTINEL), seg, n)
+        maskf = s_mask.to(ACC_DTYPE)
+        for name, fn, argf in agg_fns:
+            if fn == "count":
+                v = maskf
+            else:
+                v = argf(cols)
+                if not isinstance(v, torch.Tensor):
+                    v = torch.tensor(v, device=mask.device)
+                v = v.to(mask.device, ACC_DTYPE).expand(mask.shape)[order]
+            if fn in ("sum", "count"):
+                out[name] = _segment(v * maskf, seg, n, "sum")
+            elif fn == "min":
+                out[name] = _segment(torch.where(s_mask, v, float("inf")),
+                                     seg, n, "min")
+            elif fn == "max":
+                out[name] = _segment(torch.where(s_mask, v, float("-inf")),
+                                     seg, n, "max")
+        present = torch.zeros((n,), dtype=torch.int64, device=mask.device)
+        out_mask = present.index_add_(0, seg, s_mask.to(torch.int64)) > 0
+        return out, out_mask
+    return op
 
 
 MERGE_FN = {"sum": "sum", "count": "sum", "min": "min", "max": "max"}
@@ -180,10 +242,37 @@ def merge_aggs_spec(aggs: list[tuple[str, str, ast.Expr | None]]):
 
 # -- join -----------------------------------------------------------------------
 
+def sort_build_side(build_cols: Cols, build_mask, build_key: str):
+    """The build side's join keys sorted ascending, masked rows pushed to
+    the end under INT64_SENTINEL, and the sorting permutation (stable:
+    among equal keys the first build row comes first, as jnp.argsort)."""
+    bk = torch.where(build_mask, build_cols[build_key].to(KEY_DTYPE),
+                     INT64_SENTINEL)
+    sk, order = torch.sort(bk, stable=True)
+    return sk, order
+
+
 def make_pk_join_probe(probe_key: str, build_key: str,
                        payload_cols: list[str]):
-    """FK→PK equi-join probe against the sorted build side."""
-    raise NotImplementedError(f"make_pk_join_probe is {_JOIN_SLICE}")
+    """FK→PK equi-join: binary-search probe against the sorted build side.
+
+    Build keys are unique (PK) so each probe row matches ≤ 1 build row.
+    Output occupies the probe block; misses/invalid rows are masked out.
+    """
+
+    def op(probe_cols: Cols, probe_mask, build_cols: Cols, build_mask):
+        sk, order = sort_build_side(build_cols, build_mask, build_key)
+        pk = probe_cols[probe_key].to(KEY_DTYPE)
+        pos = torch.searchsorted(sk, pk)
+        pos_c = pos.clamp(0, sk.shape[0] - 1)
+        hit = (sk[pos_c] == pk) & probe_mask & (pk != INT64_SENTINEL)
+        sel = order[pos_c]
+        out = dict(probe_cols)
+        for c in payload_cols:
+            if c not in out:
+                out[c] = build_cols[c][sel]
+        return out, hit
+    return op
 
 
 # -- exchange partitioning -------------------------------------------------------

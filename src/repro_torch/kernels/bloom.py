@@ -1,11 +1,13 @@
-"""Semi-join Bloom filters — build, merge, probe (host numpy half).
+"""Semi-join Bloom filters — build, merge, probe.
 
-This is the numpy half of ``repro.kernels.bloom``: sizing, build, merge,
-host probe, key extraction and the wire format, so filters stay
-interchangeable between the two packages. The device probe (the torch
-twin and the CUDA kernel) comes with the join slice of the port; until
-then ``exec.lower`` reports the ``bloom_filter`` arm as not yet ported
-and the fragment driver kills rows on the host.
+The port of ``repro.kernels.bloom``. The host half (sizing, build, merge,
+host probe, key extraction and the wire format) is numpy and byte-
+compatible with the reference's, so filters stay interchangeable between
+the two packages. The device half probes in torch: the plain version
+:func:`bloom_probe_plain` (uint32 arithmetic in masked int64: torch on
+the CPU has no ``>>`` or ``+`` on uint32) and the wrapper of the CUDA
+kernel ``csrc/bloom.cu`` (:func:`fused_bloom_filter_cuda`), which
+``exec.lower``'s ``bloom_filter`` arm launches.
 
 When a pipeline materializes the build side of a repartition join, each
 worker folds the join-key column of its output into a compact Bloom
@@ -16,11 +18,10 @@ so rows that cannot find a join partner die on the worker that scanned
 them instead of being shuffled (requests + bytes are the dominant
 serverless cost — see ``CostModel.semijoin_benefit``).
 
-All three probe paths — host numpy (the l0-write kill in
-``exec.fragment``), traced jnp (the fallback fragment program), and the
-Pallas kernel (``fused_bloom_filter``, dispatched by ``exec.lower``) —
-share one hash family so a bit set by any builder is found by every
-prober:
+All three probe paths — host numpy (the kill in ``exec.fragment`` for
+hash64 keys), plain torch (the generic fragment program), and the CUDA
+kernel (``fused_bloom_filter``, dispatched by ``exec.lower``) — share
+one hash family so a bit set by any build is found by every probe:
 
   * double hashing over a 32-bit murmur3 finalizer (``fmix32``):
     ``pos_i = (h1 + i·h2) & (n_bits − 1)`` with ``h2`` forced odd, so
@@ -43,11 +44,14 @@ from __future__ import annotations
 import math
 
 import numpy as np
+import torch
+
+from repro_torch.kernels import ext
 
 BLOOM_K = 6
 BLOOM_BITS_PER_KEY = 12
 BLOOM_MIN_BITS = 1 << 10            # 128 B floor: never degenerate
-BLOOM_MAX_BITS = 1 << 22            # 512 KiB cap: stays VMEM-resident
+BLOOM_MAX_BITS = 1 << 22            # 512 KiB cap (the reference's VMEM)
 _SEED1 = np.uint32(0x9E3779B9)
 _SEED2 = np.uint32(0x41C64E6D)
 _M1 = 0x85EBCA6B
@@ -130,6 +134,97 @@ def bloom_probe_np(keys_u32: np.ndarray, words: np.ndarray, n_bits: int,
                    >> (pos & np.uint32(31))) & np.uint32(1)
             hit &= bit != 0
     return hit
+
+
+# -- device probe (torch) ----------------------------------------------------------
+
+NAME = "bloom_filter"
+_MASK32 = 0xFFFFFFFF
+_KEY_TYPES = {torch.int64: 2, torch.int32: 3}   # program.DTYPE_CODES
+
+
+def words_tensor(words: np.ndarray, device) -> torch.Tensor:
+    """The filter's uint32 words as an int32 tensor (same bits) on
+    ``device``: what the probes below take."""
+    w = np.ascontiguousarray(words, dtype=np.uint32).view(np.int32)
+    return torch.from_numpy(w.copy()).to(device)
+
+
+def _mul32(x: torch.Tensor, m: int) -> torch.Tensor:
+    """(x * m) mod 2^32 for x in [0, 2^32), in int64 without overflow:
+    the multiplier split in 16-bit halves."""
+    lo = x * (m & 0xFFFF)
+    hi = ((x * (m >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _MASK32
+
+
+def _fmix32_t(x: torch.Tensor) -> torch.Tensor:
+    x = x ^ (x >> 16)
+    x = _mul32(x, _M1)
+    x = x ^ (x >> 13)
+    x = _mul32(x, _M2)
+    return x ^ (x >> 16)
+
+
+def _check_filter(words: torch.Tensor, bits: int) -> None:
+    if words.dtype != torch.int32 or words.dim() != 1 \
+            or words.numel() * 32 != bits or bits & (bits - 1):
+        raise ValueError(f"filter of {bits} bits needs {bits // 32} int32 "
+                         f"words, got {words.dtype} {tuple(words.shape)}")
+
+
+def bloom_probe_plain(keys: torch.Tensor, words: torch.Tensor, bits: int,
+                      k: int = BLOOM_K) -> torch.Tensor:
+    """Membership mask (bool) of ``keys`` (any integer tensor, truncated
+    mod 2^32 as ``astype(np.uint32)`` does) in the filter ``words``
+    (int32 bits, :func:`words_tensor`): bit for bit
+    :func:`bloom_probe_np`."""
+    _check_filter(words, bits)
+    ku = keys.to(torch.int64) & _MASK32
+    h1 = _fmix32_t(ku ^ int(_SEED1))
+    h2 = _fmix32_t(ku ^ int(_SEED2)) | 1
+    w = words.to(torch.int64) & _MASK32
+    hit = torch.ones(ku.shape, dtype=torch.bool, device=ku.device)
+    for i in range(k):
+        pos = (h1 + i * h2) & (bits - 1)
+        hit &= ((w[pos >> 5] >> (pos & 31)) & 1) != 0
+    return hit
+
+
+def fused_bloom_filter_plain(keys: torch.Tensor, mask: torch.Tensor, *,
+                             words: torch.Tensor, bits: int,
+                             k: int = BLOOM_K) -> torch.Tensor:
+    return bloom_probe_plain(keys, words, bits, k) & mask
+
+
+def fused_bloom_filter_cuda(keys: torch.Tensor, mask: torch.Tensor, *,
+                            words: torch.Tensor, bits: int,
+                            k: int = BLOOM_K, tiling) -> torch.Tensor:
+    """``mask`` ∧ membership of every row's key, by ``csrc/bloom.cu``."""
+    lib = ext.library("bloom")
+    ext.check_mask(mask)
+    _check_filter(words, bits)
+    dev = mask.device
+    if keys.shape != mask.shape or keys.device != dev \
+            or words.device != dev:
+        raise ValueError(f"keys {tuple(keys.shape)} on {keys.device}, "
+                         f"words on {words.device}, mask "
+                         f"{tuple(mask.shape)} on {dev}")
+    if keys.dtype not in _KEY_TYPES:
+        if keys.is_floating_point() or keys.dtype == torch.bool:
+            raise TypeError(f"Bloom key dtype {keys.dtype}: integers only")
+        keys = keys.to(torch.int64)
+    keys, words = keys.contiguous(), words.contiguous()
+    n = int(mask.shape[0])
+    out = torch.empty((n,), dtype=torch.bool, device=dev)
+    ctas = ext.grid_ctas(tiling, n, dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.bloom_launch(keys.data_ptr(), _KEY_TYPES[keys.dtype],
+                          mask.data_ptr(), n, words.data_ptr(), bits, k,
+                          out.data_ptr(), ctas, tiling.block_rows, stream)
+    ext.check(lib, rc, NAME)
+    ext.count_launch(NAME)
+    return out
 
 
 # -- key extraction (build and probe must agree) --------------------------------

@@ -22,41 +22,17 @@ __global__ void filter_agg_kernel(Cols cols,
                                   int64_t n, Prog P,
                                   double* __restrict__ partials) {
   extern __shared__ double warp_part[];  // (n_warps, A)
-  const int A = P.n_aggs;
   double acc[kMaxAggs];
-  for (int a = 0; a < A; ++a) acc[a] = identity(__ldg(P.fns + a));
+  init_acc(acc, P);
   const bool pred = has_slot(P, 0);
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t row = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
        row < n; row += stride) {
     if (!mask[row]) continue;
     if (pred && eval_slot(P, 0, cols, row) == 0.0) continue;
-    for (int a = 0; a < A; ++a) {
-      const int fn = __ldg(P.fns + a);
-      if (fn == COUNT) {
-        acc[a] += 1.0;
-      } else {
-        acc[a] = combine(fn, acc[a], eval_slot(P, 2 + a, cols, row));
-      }
-    }
+    fold_row(acc, P, cols, row);
   }
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int n_warps = blockDim.x >> 5;
-  for (int a = 0; a < A; ++a) {
-    const int fn = __ldg(P.fns + a);
-    double v = acc[a];
-    for (int off = 16; off > 0; off >>= 1)
-      v = combine(fn, v, __shfl_down_sync(0xffffffffu, v, off));
-    if (lane == 0) warp_part[warp * A + a] = v;
-  }
-  __syncthreads();
-  if (threadIdx.x < A) {
-    const int a = threadIdx.x;
-    const int fn = __ldg(P.fns + a);
-    double v = identity(fn);
-    for (int w = 0; w < n_warps; ++w) v = combine(fn, v, warp_part[w * A + a]);
-    partials[(int64_t)blockIdx.x * A + a] = v;
-  }
+  cta_reduce(acc, P, warp_part, partials);
 }
 
 }  // namespace scan_agg
@@ -76,8 +52,6 @@ extern "C" int filter_agg_launch(const int64_t* col_ptrs,
   const Prog P{code, consts, slots, fns, n_aggs};
   const size_t smem = (size_t)(threads / 32) * n_aggs * sizeof(double);
   filter_agg_kernel<<<ctas, threads, smem, s>>>(c, mask, n, P, partials);
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  return reduce_partials(partials, ctas, n_aggs, n_aggs, fns, n_aggs, out,
+  return finish_partials(partials, ctas, n_aggs, n_aggs, fns, n_aggs, out,
                          s);
 }

@@ -1,7 +1,14 @@
 // Shared pieces of the scan-aggregate kernels (filter_agg.cu,
-// groupby.cu): the column table, the per-row interpreter of the
-// postfix expression programs built by kernels/program.py, the f64
-// identities and combiners, and the fixed-order second pass.
+// groupby.cu, join_probe.cu): the column table, the per-row interpreter
+// of the postfix expression programs built by kernels/program.py, the
+// f64 identities and combiners, the per-row folds into the ungrouped
+// accumulators and the grouped (K, A+1) tile, and the fixed-order
+// second pass.
+//
+// The join kernel reads some program columns on the build side, at the
+// probe row's hit position: the loads and folds take a template flag,
+// kGather, and a bit mask of the gathered columns. With kGather false
+// (the scan kernels) they are the plain row loads.
 //
 // Built with -fmad=false: the interpreter's mul and add stay separate
 // roundings, as in the reference's unfused jnp arithmetic.
@@ -11,6 +18,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "cuda_error.cuh"
 
 namespace scan_agg {
 
@@ -22,7 +31,7 @@ constexpr int kMaxAggs = 32;   // program.MAX_AGGS
 enum Op {
   COL = 0, CONST = 1, ADD = 2, SUB = 3, MUL = 4, DIV = 5,
   LT = 6, LE = 7, GT = 8, GE = 9, EQ = 10, NE = 11,
-  AND = 12, OR = 13, NOT = 14, CASE = 15, IN = 16, TRUNC = 17
+  AND = 12, OR = 13, NOT = 14, CASE = 15, IN = 16, TRUNC = 17, F32 = 18
 };
 enum Agg { SUM = 0, COUNT = 1, MIN = 2, MAX = 3 };
 
@@ -41,8 +50,13 @@ struct Prog {
   int n_aggs;
 };
 
+// Column j at ``row``, or at ``pos`` where kGather and bit j of
+// ``gathered`` is set (a build payload column of the join).
+template <bool kGather = false>
 __device__ __forceinline__ double load_col(const Cols& c, int j,
-                                           int64_t row) {
+                                           int64_t row, int64_t pos = 0,
+                                           unsigned gathered = 0u) {
+  if (kGather && ((gathered >> j) & 1u)) row = pos;
   const void* p = c.ptr[j];
   switch (c.type[j]) {
     case 0: return __ldg(static_cast<const double*>(p) + row);
@@ -60,8 +74,10 @@ __device__ __forceinline__ bool has_slot(const Prog& P, int slot) {
 }
 
 // Evaluate one slot of the program for one row; booleans are 0/1.
+template <bool kGather = false>
 __device__ double eval_slot(const Prog& P, int slot, const Cols& cols,
-                            int64_t row) {
+                            int64_t row, int64_t pos = 0,
+                            unsigned gathered = 0u) {
   const int lo = __ldg(P.slots + slot), hi = __ldg(P.slots + slot + 1);
   double st[kMaxStack];
   int sp = 0;
@@ -69,10 +85,13 @@ __device__ double eval_slot(const Prog& P, int slot, const Cols& cols,
     const int op = __ldg(P.code + 2 * pc);
     const int arg = __ldg(P.code + 2 * pc + 1);
     switch (op) {
-      case COL: st[sp++] = load_col(cols, arg, row); break;
+      case COL:
+        st[sp++] = load_col<kGather>(cols, arg, row, pos, gathered);
+        break;
       case CONST: st[sp++] = __ldg(P.consts + arg); break;
       case NOT: st[sp - 1] = st[sp - 1] == 0.0 ? 1.0 : 0.0; break;
       case TRUNC: st[sp - 1] = trunc(st[sp - 1]); break;
+      case F32: st[sp - 1] = (double)__double2float_rn(st[sp - 1]); break;
       case IN: {
         const double t = st[sp - 1];
         const int n = (int)__ldg(P.consts + arg);
@@ -144,6 +163,104 @@ __device__ __forceinline__ void atomic_combine_cas(double* addr, int fn,
   } while (assumed != old);
 }
 
+// -- ungrouped: A accumulators per thread, reduced per CTA --------------
+
+__device__ __forceinline__ void init_acc(double* acc, const Prog& P) {
+  for (int a = 0; a < P.n_aggs; ++a) acc[a] = identity(__ldg(P.fns + a));
+}
+
+// Fold one surviving row into the thread's accumulators.
+template <bool kGather = false>
+__device__ __forceinline__ void fold_row(double* acc, const Prog& P,
+                                         const Cols& cols, int64_t row,
+                                         int64_t pos = 0,
+                                         unsigned gathered = 0u) {
+  for (int a = 0; a < P.n_aggs; ++a) {
+    const int fn = __ldg(P.fns + a);
+    if (fn == COUNT) {
+      acc[a] += 1.0;
+    } else {
+      acc[a] = combine(fn, acc[a],
+                       eval_slot<kGather>(P, 2 + a, cols, row, pos,
+                                          gathered));
+    }
+  }
+}
+
+// Reduce the CTA's accumulators by warp shuffles and a pass over the
+// warps' partials in shared memory (n_warps × A doubles); thread a < A
+// writes partials[blockIdx.x * A + a].
+__device__ __forceinline__ void cta_reduce(const double* acc, const Prog& P,
+                                           double* warp_part,
+                                           double* __restrict__ partials) {
+  const int A = P.n_aggs;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n_warps = blockDim.x >> 5;
+  for (int a = 0; a < A; ++a) {
+    const int fn = __ldg(P.fns + a);
+    double v = acc[a];
+    for (int off = 16; off > 0; off >>= 1)
+      v = combine(fn, v, __shfl_down_sync(0xffffffffu, v, off));
+    if (lane == 0) warp_part[warp * A + a] = v;
+  }
+  __syncthreads();
+  if (threadIdx.x < A) {
+    const int a = threadIdx.x;
+    const int fn = __ldg(P.fns + a);
+    double v = identity(fn);
+    for (int w = 0; w < n_warps; ++w) v = combine(fn, v, warp_part[w * A + a]);
+    partials[(int64_t)blockIdx.x * A + a] = v;
+  }
+}
+
+// -- grouped: one (K, A+1) f64 tile per CTA in shared memory ---------------
+
+__device__ __forceinline__ void init_tile(double* tile, const Prog& P,
+                                          int K) {
+  const int A = P.n_aggs, W = A + 1;
+  const int KW = K * W;
+  for (int i = threadIdx.x; i < KW; i += blockDim.x) {
+    const int col = i % W;
+    tile[i] = col < A ? identity(__ldg(P.fns + col)) : 0.0;
+  }
+}
+
+// Fold one surviving row into its group: shared atomicAdd for sums,
+// counts and the presence column, compare-and-swap for min/max. A row
+// whose group id falls outside [0, K) reaches no group, as in the
+// reference's one-hot; nothing is written outside the tile.
+template <bool kGather = false>
+__device__ __forceinline__ void fold_row_grouped(double* tile, const Prog& P,
+                                                 const Cols& cols, int K,
+                                                 int64_t row, int64_t pos = 0,
+                                                 unsigned gathered = 0u) {
+  const int A = P.n_aggs, W = A + 1;
+  const double g = eval_slot<kGather>(P, 1, cols, row, pos, gathered);
+  if (!(g >= 0.0 && g < (double)K)) return;
+  double* t = tile + (int)g * W;
+  for (int a = 0; a < A; ++a) {
+    const int fn = __ldg(P.fns + a);
+    if (fn == COUNT) {
+      atomicAdd(t + a, 1.0);
+      continue;
+    }
+    const double v = eval_slot<kGather>(P, 2 + a, cols, row, pos, gathered);
+    if (fn == SUM) {
+      atomicAdd(t + a, v);
+    } else {
+      atomic_combine_cas(t + a, fn, v);
+    }
+  }
+  atomicAdd(t + A, 1.0);
+}
+
+// Copy the CTA's tile to its partials (after a __syncthreads).
+__device__ __forceinline__ void write_tile(const double* tile, int KW,
+                                           double* __restrict__ partials) {
+  double* mine = partials + (int64_t)blockIdx.x * KW;
+  for (int i = threadIdx.x; i < KW; i += blockDim.x) mine[i] = tile[i];
+}
+
 // Second pass: out[i] = fold over the CTAs' partials of element i, in
 // CTA order, so the result repeats run to run. Element i belongs to
 // aggregate column i % row_len; a column past the aggregates is the
@@ -174,6 +291,24 @@ inline int reduce_partials(const double* partials, int n_parts,
   return (int)cudaGetLastError();
 }
 
+// Launch the second pass after a scan kernel, if that launched.
+inline int finish_partials(const double* partials, int n_parts,
+                           int64_t width, int row_len, const int* fns,
+                           int n_aggs, double* out, cudaStream_t stream) {
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  return reduce_partials(partials, n_parts, width, row_len, fns, n_aggs,
+                         out, stream);
+}
+
+// Opt a kernel in to more than 48 KB of dynamic shared memory.
+template <class Kernel>
+inline int allow_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
 inline Cols make_cols(const int64_t* ptrs, const int* types, int n_cols) {
   Cols c;
   for (int j = 0; j < kMaxCols; ++j) {
@@ -185,7 +320,3 @@ inline Cols make_cols(const int64_t* ptrs, const int* types, int n_cols) {
 }
 
 }  // namespace scan_agg
-
-extern "C" const char* scan_agg_error_string(int e) {
-  return cudaGetErrorString(static_cast<cudaError_t>(e));
-}

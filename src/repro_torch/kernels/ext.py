@@ -13,7 +13,8 @@ lock guards it across processes.
 Launch counts: each kernel wrapper calls :func:`count_launch` under its
 own name where it launches its kernel and nowhere else, so a run can
 show that its main path went through the kernels (``groupby.cu`` serves
-two wrappers, ``groupby`` and ``groupby_minmax``).
+two wrappers, ``groupby`` and ``groupby_minmax``; the join and Bloom
+wrappers count as ``join_probe_agg`` and ``bloom_filter``).
 """
 
 from __future__ import annotations
@@ -40,20 +41,28 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_ext"
 SOURCES = {
     "filter_agg": "filter_agg.cu",
     "groupby": "groupby.cu",
+    "join_probe": "join_probe.cu",
+    "bloom": "bloom.cu",
 }
-HEADERS = ("scan_agg.cuh",)
+HEADERS = ("scan_agg.cuh", "cuda_error.cuh")
 NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+_P, _I, _L, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, \
+    ctypes.c_uint
 # C signature of each library's launch function: columns, mask and rows,
-# program, [K,] partials and output, grid, stream
+# program, [K,] partials and output, grid, stream (the join adds the
+# gathered-column mask, the probe key and the sorted build keys; the
+# Bloom probe takes the key, mask, words, bits, k and its output)
 _ARGTYPES = {
     "filter_agg": [_P, _P, _I, _P, _L, _P, _P, _P, _P, _I, _P, _P, _I, _I,
                    _P],
     "groupby": [_P, _P, _I, _P, _L, _P, _P, _P, _P, _I, _I, _P, _P, _I, _I,
                 _P],
+    "join_probe": [_P, _P, _I, _U, _P, _L, _P, _I, _P, _L, _P, _P, _P, _P,
+                   _I, _I, _P, _P, _I, _I, _P],
+    "bloom": [_P, _I, _P, _L, _P, _L, _I, _P, _I, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -161,24 +170,33 @@ def library(name: str) -> ctypes.CDLL:
             fn = getattr(lib, f"{name}_launch")
             fn.argtypes = _ARGTYPES[name]
             fn.restype = ctypes.c_int
-            lib.scan_agg_error_string.argtypes = [ctypes.c_int]
-            lib.scan_agg_error_string.restype = ctypes.c_char_p
+            lib.kernel_error_string.argtypes = [ctypes.c_int]
+            lib.kernel_error_string.restype = ctypes.c_char_p
             _libs[name] = lib
     return lib
 
 
-def column_args(columns: dict, mask, prog) -> tuple:
-    """Checked C arguments for a program's columns and the row mask:
-    (column tensors kept alive, pointer array, type array, n_cols)."""
+def check_mask(mask) -> None:
     if mask.dtype != torch.bool or mask.dim() != 1 \
             or not mask.is_contiguous():
         raise ValueError("mask must be a contiguous 1-D bool tensor")
+
+
+def column_args(columns: dict, mask, prog, payload: dict | None = None,
+                build_rows: int = 0) -> tuple:
+    """Checked C arguments for a program's columns and the row mask:
+    (column tensors kept alive, pointer array, type array, n_cols). A
+    column the program gathers on the build side (``prog.gathered``)
+    comes from ``payload`` and has ``build_rows`` rows."""
+    check_mask(mask)
     cols = []
-    for name in prog.names:
-        c = columns[name]
-        if c.device != mask.device or c.shape != mask.shape:
+    gathered = prog.gathered or (False,) * len(prog.names)
+    for name, g in zip(prog.names, gathered):
+        c = payload[name] if g else columns[name]
+        want = (build_rows,) if g else tuple(mask.shape)
+        if c.device != mask.device or tuple(c.shape) != want:
             raise ValueError(f"column {name!r}: {tuple(c.shape)} on "
-                             f"{c.device}, mask {tuple(mask.shape)} on "
+                             f"{c.device}, want {tuple(want)} on "
                              f"{mask.device}")
         if c.dtype not in DTYPE_CODES:
             raise TypeError(f"column {name!r}: dtype {c.dtype} unsupported")
@@ -200,5 +218,5 @@ def grid_ctas(tiling, n_rows: int, device) -> int:
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
     """Raise if a launch function returned a CUDA error."""
     if rc != 0:
-        msg = lib.scan_agg_error_string(rc).decode()
+        msg = lib.kernel_error_string(rc).decode()
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")

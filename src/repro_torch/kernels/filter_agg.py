@@ -21,7 +21,7 @@ import torch
 
 from repro_torch.kernels import ext
 from repro_torch.kernels.common import ACC_DTYPE, NEUTRAL
-from repro_torch.kernels.program import Program, eval_slot
+from repro_torch.kernels.program import Program, eval_slot, for_columns
 
 NAME = "filter_agg"
 
@@ -35,6 +35,7 @@ def _surviving(columns: dict, mask, prog: Program):
 
 def fused_filter_agg_plain(columns: dict, mask, *,
                            program: Program) -> torch.Tensor:
+    program = for_columns(program, columns)
     m = _surviving(columns, mask, program)
     out = []
     for a, fn in enumerate(program.fns):
@@ -60,6 +61,7 @@ def fused_filter_agg_plain(columns: dict, mask, *,
 def fused_filter_agg_cuda(columns: dict, mask, *, program: Program,
                           tiling) -> torch.Tensor:
     lib = ext.library(NAME)
+    program = for_columns(program, columns)
     dev = mask.device
     cols, ptrs, types, n_cols = ext.column_args(columns, mask, program)
     code, consts, slots, fns = program.device_arrays(dev)

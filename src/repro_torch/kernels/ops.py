@@ -5,18 +5,19 @@ the hand-written kernel, CPU tensors run its plain torch version. There
 is no fallback between the two: a CUDA tensor that the kernel cannot
 take, a failed build or a failed launch raises.
 
-The kernels of the reference that the port has not reached yet (join
-probe, Bloom probe, sort-aggregate, top-k, and the benchmark and model
-kernels) have no wrapper here; ``exec.lower`` reports their arms as not
-yet ported.
+The kernels of the reference that the port has not reached yet
+(sort-aggregate, top-k, and the benchmark and model kernels) have no
+wrapper here; ``exec.lower`` reports their arms as not yet ported.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import bloom as _bl
 from repro_torch.kernels import filter_agg as _fa
 from repro_torch.kernels import groupby_onehot as _go
+from repro_torch.kernels import join_probe as _jp
 from repro_torch.kernels import segmented_minmax as _smm
 from repro_torch.kernels.program import Program
 
@@ -48,3 +49,23 @@ def fused_groupby_minmax(columns: dict, mask, *, program: Program, tiling):
         return _smm.fused_groupby_minmax_cuda(columns, mask, program=program,
                                               tiling=tiling)
     return _smm.fused_groupby_minmax_plain(columns, mask, program=program)
+
+
+def fused_join_probe_agg(probe_cols: dict, probe_mask, sorted_keys,
+                         sorted_payload: dict, *, probe_key: str,
+                         program: Program, tiling):
+    if _on_cuda(probe_mask):
+        return _jp.fused_join_probe_agg_cuda(
+            probe_cols, probe_mask, sorted_keys, sorted_payload,
+            probe_key=probe_key, program=program, tiling=tiling)
+    return _jp.fused_join_probe_agg_plain(
+        probe_cols, probe_mask, sorted_keys, sorted_payload,
+        probe_key=probe_key, program=program)
+
+
+def fused_bloom_filter(keys, mask, *, words, bits: int, k: int, tiling):
+    if _on_cuda(mask):
+        return _bl.fused_bloom_filter_cuda(keys, mask, words=words,
+                                           bits=bits, k=k, tiling=tiling)
+    return _bl.fused_bloom_filter_plain(keys, mask, words=words, bits=bits,
+                                        k=k)

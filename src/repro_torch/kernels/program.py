@@ -8,6 +8,25 @@ int32 (opcode, argument) pairs plus a float64 constant pool. The kernel
 interprets the program per row in float64, with booleans as 0/1; one
 binary then serves every query shape.
 
+Result types: the reference's jnp arithmetic gives float32 where both
+operands of ``/`` are integers narrower than int64 (``int32 / 7``), and
+float32 stays float32 under weak-typed literals. The plan does not know
+column dtypes, so :meth:`Program.specialise` runs a host-side type pass
+at launch, with the columns' dtypes: it follows the promotion of the
+generic torch path (``exec.expr``, checked against jnp dtype for dtype)
+and inserts an ``F32`` rounding after every operand and result the
+reference computes in float32. Float32 add, sub, mul and div of
+f32-rounded operands, done in f64 and rounded once, equal the float32
+operation, so the kernel stays an f64 interpreter. Division by a
+literal becomes multiplication by its reciprocal in the result type, as
+XLA compiles the reference's jitted ``x / c`` (and as ``exec.expr``
+does). Specialised programs are cached per dtype tuple.
+
+Join programs read some columns on the build side: a column is either a
+probe column, read at the probe row, or a build payload column, read at
+the row's hit position (``Program.gathered``, fixed at launch from the
+blocks the kernel is given).
+
 A program holds the slots of one fused kernel call: slot 0 is the
 predicate (empty: every valid row passes), slot 1 the mixed-radix group
 id (empty for the ungrouped kernel), then one slot per aggregate
@@ -25,17 +44,21 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.kernels.common import divides_by_reciprocal, reciprocal, \
+    true_divide
+
 # opcodes (keep in step with csrc/scan_agg.cuh)
 COL, CONST, ADD, SUB, MUL, DIV = 0, 1, 2, 3, 4, 5
 LT, LE, GT, GE, EQ, NE = 6, 7, 8, 9, 10, 11
 AND, OR, NOT, CASE, IN, TRUNC = 12, 13, 14, 15, 16, 17
+F32 = 18                # round the top of the stack through float32
 
 _BIN = {"+": ADD, "-": SUB, "*": MUL, "/": DIV}
 _CMP = {"<": LT, "<=": LE, ">": GT, ">=": GE, "=": EQ, "<>": NE}
 # arity of each opcode: values popped, values pushed is always 1
 _POPS = {COL: 0, CONST: 0, ADD: 2, SUB: 2, MUL: 2, DIV: 2, LT: 2, LE: 2,
          GT: 2, GE: 2, EQ: 2, NE: 2, AND: 2, OR: 2, NOT: 1, CASE: 3,
-         IN: 1, TRUNC: 1}
+         IN: 1, TRUNC: 1, F32: 1}
 
 # aggregate function codes
 AGG_CODES = {"sum": 0, "count": 1, "min": 2, "max": 3}
@@ -63,8 +86,15 @@ class Program:
     fns: tuple[str, ...]         # aggregate fns, one per agg slot
     n_groups: int                # 0: ungrouped
     depth: int                   # max stack depth the program needs
+    const_int: tuple[bool, ...] = ()   # literal was an int (weak int)
+    # set by specialise(): the column dtypes the program is typed for,
+    # and which columns the join kernel reads on the build side
+    dtypes: tuple | None = None
+    gathered: tuple[bool, ...] = ()
     _device: dict = dataclasses.field(default_factory=dict, compare=False,
                                       repr=False)
+    _variants: dict = dataclasses.field(default_factory=dict,
+                                        compare=False, repr=False)
 
     @property
     def n_aggs(self) -> int:
@@ -80,6 +110,26 @@ class Program:
     def n_ops(self, s: int) -> int:
         lo, hi = self.slot_range(s)
         return hi - lo
+
+    def specialise(self, dtypes: tuple, gathered: tuple = ()) -> Program:
+        """This program typed for column ``dtypes`` (one per name) and,
+        for the join kernel, with the build-side columns ``gathered``:
+        ``F32`` roundings inserted where the reference computes in
+        float32 (see the module docstring). Cached per argument tuple."""
+        key = (tuple(dtypes), tuple(gathered))
+        if self.dtypes is not None:     # typed already: the dtypes agree
+            if key[0] == self.dtypes:   # (gathered columns, once read,
+                return self             # are plain columns)
+            raise ValueError(f"program typed for {self.dtypes}, "
+                             f"not {key[0]}")
+        typed = self._variants.get(key)
+        if typed is None:
+            code, consts, slots = _type_pass(self, key[0])
+            typed = dataclasses.replace(
+                self, code=code, consts=consts, slots=slots,
+                dtypes=key[0], gathered=key[1], _device={}, _variants={})
+            typed = self._variants.setdefault(key, typed)
+        return typed
 
     def device_arrays(self, device: torch.device):
         """(code, consts, slots, fns) on ``device``, uploaded once per
@@ -101,9 +151,11 @@ class _Emitter:
         self.names: list[str] = []
         self.code: list[int] = []
         self.consts: list[float] = []
+        self.const_int: list[bool] = []
 
-    def const(self, v: float) -> int:
+    def const(self, v) -> int:
         self.consts.append(float(v))
+        self.const_int.append(isinstance(v, int))
         return len(self.consts) - 1
 
     def op(self, opcode: int, arg: int = 0) -> None:
@@ -226,11 +278,112 @@ def compile_program(preds: list[dict], aggs: list, *,
                    np.asarray(em.code, np.int32).reshape(-1, 2),
                    np.asarray(em.consts or [0.0], np.float64),
                    np.asarray(bounds, np.int32),
-                   tuple(fn for fn, _ in aggs), int(n_groups), depth)
+                   tuple(fn for fn, _ in aggs), int(n_groups), depth,
+                   tuple(em.const_int) or (False,))
 
 
 def _depth_net(code: list[int]) -> int:
     return sum(1 - _POPS[code[i]] for i in range(0, len(code), 2))
+
+
+# -- the type pass -------------------------------------------------------------------
+
+_ARITH = {ADD: torch.add, SUB: torch.sub, MUL: torch.mul}
+
+
+def _type_pass(prog: Program, dtypes: tuple):
+    """Follow each value's dtype through the postfix code on proxy
+    tensors (columns 1-D zeros, literals 0-dim int64/float64 holding
+    their value, as the generic path builds them; ``/`` through
+    ``common.true_divide``, the generic path's own rule) and insert
+    ``F32`` after every operand and result of an operation whose type
+    is float32. Returns (code, consts, slots) of the typed program."""
+    if len(dtypes) != len(prog.names):
+        raise ValueError(f"{len(dtypes)} dtypes for {len(prog.names)} "
+                         "columns")
+    code = prog.code.tolist()
+    consts = prog.consts.copy()
+    after: set[int] = set()          # instruction indices to round after
+    f32 = torch.float32
+
+    def round_(*entries):
+        for proxy, at in entries:
+            if proxy.dtype != f32:
+                after.add(at)
+
+    for s in range(len(prog.slots) - 1):
+        lo, hi = prog.slot_range(s)
+        stack: list[tuple[torch.Tensor, int]] = []
+        for i in range(lo, hi):
+            op, arg = code[i]
+            if op == COL:
+                stack.append((torch.zeros(1, dtype=dtypes[arg]), i))
+            elif op == CONST:
+                stack.append((torch.tensor(consts[arg], dtype=torch.int64
+                                           if prog.const_int[arg]
+                                           else torch.float64), i))
+            elif op in (NOT, IN):
+                t, _ = stack.pop()
+                if op == IN and t.dtype == f32:
+                    n = int(consts[arg])
+                    consts[arg + 1:arg + 1 + n] = consts[
+                        arg + 1:arg + 1 + n].astype(np.float32)
+                stack.append((torch.zeros(t.shape, dtype=torch.bool), i))
+            elif op == TRUNC:
+                stack.append((stack.pop()[0], i))
+            elif op == CASE:
+                e, t, c = stack.pop(), stack.pop(), stack.pop()
+                r = torch.where(c[0].to(torch.bool), t[0], e[0])
+                if r.dtype == f32:
+                    round_(t, e)
+                stack.append((r, i))
+            else:
+                b, a = stack.pop(), stack.pop()
+                if op in _ARITH or op == DIV:
+                    try:
+                        r = (true_divide if op == DIV
+                             else _ARITH[op])(a[0], b[0])
+                    except RuntimeError:    # bool arithmetic: no f32
+                        r = torch.zeros(1, dtype=torch.float64)
+                    if op == DIV and code[b[1]][0] == CONST \
+                            and divides_by_reciprocal(a[0], b[0]) \
+                            and r.is_floating_point():
+                        # x / c as common.true_divide runs it
+                        inv = float(reciprocal(b[0], r.dtype))
+                        consts = np.append(consts, inv)
+                        code[b[1]] = [CONST, len(consts) - 1]
+                        code[i] = [MUL, 0]
+                    if r.dtype == f32:
+                        round_(a, b)
+                        after.add(i)
+                else:               # comparison, AND, OR
+                    if op not in (AND, OR) and \
+                            torch.result_type(a[0], b[0]) == f32:
+                        round_(a, b)
+                    r = torch.zeros(torch.broadcast_shapes(
+                        a[0].shape, b[0].shape), dtype=torch.bool)
+                stack.append((r, i))
+    out, new_at = [], []
+    for i, pair in enumerate(code):
+        new_at.append(len(out))
+        out.append(pair)
+        if i in after:
+            out.append([F32, 0])
+    new_at.append(len(out))
+    slots = np.asarray([new_at[b] for b in prog.slots.tolist()], np.int32)
+    return np.asarray(out, np.int32).reshape(-1, 2), consts, slots
+
+
+def for_columns(program: Program, columns: dict,
+                payload: dict | None = None) -> Program:
+    """``program`` specialised for the dtypes of ``columns`` and, for the
+    join kernel, of the build ``payload``: a name missing from
+    ``columns`` is read on the build side."""
+    payload = payload or {}
+    gathered = tuple(n not in columns for n in program.names)
+    dtypes = tuple((payload[n] if g else columns[n]).dtype
+                   for n, g in zip(program.names, gathered))
+    return program.specialise(dtypes, gathered if any(gathered) else ())
 
 
 # -- plain torch evaluation ------------------------------------------------------
@@ -242,7 +395,8 @@ def _f64(x: torch.Tensor) -> torch.Tensor:
 def eval_slot(prog: Program, s: int, cols: dict) -> torch.Tensor:
     """Evaluate slot ``s`` over the column dict, vectorised: a stack of
     float64 tensors, booleans as 0/1 — the arithmetic the kernel does
-    per row."""
+    per row. For a join program, ``cols`` holds the build payload
+    already gathered at each row's hit position."""
     lo, hi = prog.slot_range(s)
     stack: list[torch.Tensor] = []
     consts = prog.consts
@@ -261,6 +415,9 @@ def eval_slot(prog: Program, s: int, cols: dict) -> torch.Tensor:
             continue
         if op == TRUNC:
             stack.append(torch.trunc(stack.pop()))
+            continue
+        if op == F32:
+            stack.append(stack.pop().to(torch.float32).to(torch.float64))
             continue
         if op == IN:
             t = stack.pop()

@@ -22,7 +22,7 @@ import torch
 
 from repro_torch.kernels import ext
 from repro_torch.kernels.common import ACC_DTYPE, NEUTRAL
-from repro_torch.kernels.program import Program, eval_slot
+from repro_torch.kernels.program import Program, eval_slot, for_columns
 
 NAME = "groupby_minmax"
 
@@ -62,6 +62,7 @@ def grouped_tile_update(tile, m, gid, columns: dict,
 
 def grouped_plain(columns: dict, mask, program: Program) -> torch.Tensor:
     """Plain torch version of both grouped kernels."""
+    program = for_columns(program, columns)
     m = mask
     if program.has_pred:
         m = m & (eval_slot(program, 0, columns) != 0)
@@ -76,6 +77,7 @@ def launch_grouped(name: str, columns: dict, mask, program: Program,
     launch under the wrapper's ``name`` (``groupby`` or
     ``groupby_minmax``)."""
     lib = ext.library("groupby")
+    program = for_columns(program, columns)
     dev = mask.device
     cols, ptrs, types, n_cols = ext.column_args(columns, mask, program)
     code, consts, slots, fns = program.device_arrays(dev)

@@ -1,5 +1,6 @@
 """The port on the card: each CUDA kernel against its plain version, and
-the slice end to end on the default device.
+the slices end to end on the default device (Q6, Q1, min/max; Q12, Q14,
+Q19 and the selective semi-join).
 
 Every test here needs an NVIDIA GPU and nvcc and skips without them. The
 file imports neither ``jax`` nor ``repro``, so it runs on a machine
@@ -14,13 +15,18 @@ import torch
 
 from repro_torch.api import connect
 from repro_torch.exec import lower
-from repro_torch.kernels import ext, ops
+from repro_torch.analysis import roofline
+from repro_torch.core import CoordinatorConfig
+from repro_torch.kernels import bloom, ext, ops
 from repro_torch.kernels import filter_agg as fa
+from repro_torch.kernels import join_probe as jp
 from repro_torch.kernels import groupby_onehot as go
 from repro_torch.kernels import segmented_minmax as smm
+from repro_torch.kernels.program import compile_program
 from repro_torch.sql import oracle
 from repro_torch.sql.logical import Binder
 from repro_torch.sql.parser import parse
+from repro_torch.sql.physical import PlannerConfig
 from repro_torch.sql.queries import QUERIES
 from repro_torch.sql.rules import optimize
 from repro_torch.storage import InputHandler
@@ -44,12 +50,18 @@ def session():
                     "no CPU mode")
     s = connect(tier="local", quota=8)
     catalog = s.ensure_tpch(sf=0.01, n_parts=4)
-    ih = InputHandler(s.store)
-    parts = [ih.read_table(f)[0] for f in catalog.tables["lineitem"].files]
-    lineitem = {c.name: np.concatenate([p[c.name] for p in parts])
-                for c in catalog.tables["lineitem"].schema}
-    yield s, catalog, lineitem
+    yield s, catalog, _tables(s, catalog)["lineitem"]
     s.close()
+
+
+def _tables(s, catalog):
+    ih = InputHandler(s.store)
+    out = {}
+    for name in ("lineitem", "orders", "part", "customer"):
+        parts = [ih.read_table(f)[0] for f in catalog.tables[name].files]
+        out[name] = {c.name: np.concatenate([p[c.name] for p in parts])
+                     for c in catalog.tables[name].schema}
+    return out
 
 
 def _match(s, sql):
@@ -97,6 +109,135 @@ def test_query_on_the_card_equals_the_oracle(session, query):
     assert stage0 and stage0[0].kernel_fragments == stage0[0].n_fragments
     lqp, _ = Binder(catalog).bind(parse(SQLS[query]))
     want = oracle.run(optimize(lqp), {"lineitem": lineitem})
+    got = res.fetch(s.store)
+    keys = sorted(want)
+    assert sorted(got) == keys
+    order_g = np.lexsort([np.asarray(got[k], np.float64) for k in keys])
+    order_w = np.lexsort([np.asarray(want[k], np.float64) for k in keys])
+    for k in keys:
+        np.testing.assert_allclose(np.asarray(got[k], np.float64)[order_g],
+                                   np.asarray(want[k], np.float64)[order_w],
+                                   **TOL)
+
+
+def _join_block(capacity: int, seed: int):
+    """A probe block and a sorted build side of ``capacity`` rows each:
+    masked rows on both sides, sentinel probe keys, int32 payload."""
+    rng = np.random.default_rng(seed)
+    dev = torch.device("cuda", 0)
+    keys = rng.permutation(2 * capacity)[:capacity].astype(np.int64)
+    bmask = rng.random(capacity) < 0.8
+    bk = torch.from_numpy(np.where(bmask, keys, np.iinfo(np.int64).max))
+    sk, order = torch.sort(bk.to(dev), stable=True)
+    pay = {"g": torch.from_numpy(rng.integers(0, 5, capacity).astype(
+        np.int32)).to(dev)[order],
+           "q": torch.from_numpy(rng.normal(size=capacity)).to(dev)[order]}
+    pk = rng.integers(-3, 2 * capacity, capacity).astype(np.int64)
+    pk[rng.random(capacity) < 0.05] = np.iinfo(np.int64).max
+    probe = {"k": torch.from_numpy(pk).to(dev),
+             "x": torch.from_numpy(rng.normal(size=capacity)).to(dev),
+             "d": torch.from_numpy(rng.integers(0, 100, capacity).astype(
+                 np.int32)).to(dev)}
+    pmask = torch.from_numpy(rng.random(capacity) < 0.9).to(dev)
+    return probe, pmask, sk, pay
+
+
+def _col(n):
+    return {"t": "col", "name": n}
+
+
+def _lit(v):
+    return {"t": "lit", "value": v, "kind": "num"}
+
+
+@pytest.mark.parametrize("capacity", [1024, 1 << 16])
+@pytest.mark.parametrize("n_groups", [0, 5])
+def test_join_kernel_matches_plain(session, capacity, n_groups):
+    probe, pmask, sk, pay = _join_block(capacity, seed=capacity + n_groups)
+    aggs = [("sum", {"t": "bin", "op": "*", "l": _col("x"), "r": _col("q")}),
+            ("count", None), ("min", _col("q")),
+            ("max", {"t": "bin", "op": "/", "l": _col("d"), "r": _lit(7)})]
+    prog = compile_program(
+        [{"t": "cmp", "op": "<", "l": _col("d"), "r": _lit(80)}], aggs,
+        group_cols=["g"] if n_groups else None,
+        strides=[1] if n_groups else None, n_groups=n_groups)
+    tiling = roofline.join_probe_tiling(n_cols=3, n_payload=2, n_aggs=4,
+                                        n_groups=n_groups)
+    before = ext.launches().get("join_probe_agg", 0)
+    got = ops.fused_join_probe_agg(probe, pmask, sk, pay, probe_key="k",
+                                   program=prog, tiling=tiling)
+    want = jp.fused_join_probe_agg_plain(probe, pmask, sk, pay,
+                                         probe_key="k", program=prog)
+    torch.cuda.synchronize()
+    assert ext.launches().get("join_probe_agg", 0) == before + 1
+    g, w = got.cpu().numpy(), want.cpu().numpy()
+    if n_groups:
+        np.testing.assert_array_equal(g[:, -1], w[:, -1])
+    np.testing.assert_allclose(g, w, **TOL)
+
+
+@pytest.mark.parametrize("capacity", [1024, 1 << 16])
+@pytest.mark.parametrize("bits", [1 << 10, 1 << 22])
+def test_bloom_kernel_matches_plain(session, capacity, bits):
+    rng = np.random.default_rng(bits + capacity)
+    dev = torch.device("cuda", 0)
+    members = rng.integers(0, 1 << 20, 5000)
+    words = bloom.words_tensor(bloom.bloom_build(
+        members.astype(np.uint32), bits), dev)
+    keys = np.concatenate([members[:100], rng.integers(
+        -(1 << 40), 1 << 40, capacity - 100)]).astype(np.int64)
+    keys = torch.from_numpy(keys).to(dev)
+    mask = torch.from_numpy(rng.random(capacity) < 0.9).to(dev)
+    before = ext.launches().get("bloom_filter", 0)
+    got = ops.fused_bloom_filter(keys, mask, words=words, bits=bits, k=6,
+                                 tiling=roofline.bloom_probe_tiling())
+    want = bloom.fused_bloom_filter_plain(keys, mask, words=words,
+                                          bits=bits, k=6)
+    torch.cuda.synchronize()
+    assert ext.launches().get("bloom_filter", 0) == before + 1
+    assert torch.equal(got, want)
+
+
+# the semi-join tests' selective join, grouped by a dictionary-coded
+# column so that every stage runs a ported kernel arm
+SELECTIVE_JOIN = (
+    "select o_orderpriority, sum(l_extendedprice) as rev "
+    "from lineitem, orders "
+    "where l_orderkey = o_orderkey and o_totalprice > 500000 "
+    "group by o_orderpriority")
+
+
+@pytest.mark.parametrize("query", ["q12", "q14", "q19", "semijoin"])
+def test_join_query_on_the_card_equals_the_oracle(session, query):
+    s, catalog, _ = session
+    from repro_torch.core.engine import QueryEngine
+    sql = SELECTIVE_JOIN if query == "semijoin" else QUERIES[query]
+    if query == "semijoin":     # repartition join, filter forced on
+        cfg = CoordinatorConfig(
+            planner=PlannerConfig(broadcast_threshold_bytes=1,
+                                  exchange_partitions=4),
+            use_result_cache=False, pipelined=False, adaptive=False)
+        eng = QueryEngine(s.store, catalog, platform=s.platform,
+                          config=cfg, handler=s.handler)
+        plan = eng.plan_sql(sql)
+        (probe,) = [p for p in plan.pipelines.values()
+                    if p.params.semijoin]
+        probe.params.semijoin["enabled"] = True
+        before = ext.launches().get("bloom_filter", 0)
+        res = eng.execute_plan(plan)
+        assert ext.launches().get("bloom_filter", 0) > before
+        pr = next(r for r in res.stats.pipelines if r.pid == probe.pid)
+        assert pr.kernel_fragments == pr.n_fragments
+        assert pr.semijoin_killed > 0
+        assert not any("not yet ported" in p.kernel_miss_reason
+                       for p in res.stats.pipelines)
+    else:
+        res = s.sql(sql)
+        (join,) = [p for p in res.stats.pipelines if p.kernel]
+        assert join.kernel == "join_probe_agg"
+        assert join.kernel_fragments == join.n_fragments
+    lqp, _ = Binder(catalog).bind(parse(sql))
+    want = oracle.run(optimize(lqp), _tables(s, catalog))
     got = res.fetch(s.store)
     keys = sorted(want)
     assert sorted(got) == keys

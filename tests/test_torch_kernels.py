@@ -263,3 +263,106 @@ def test_ops_dispatch_runs_the_plain_version_on_cpu(matches, tpch_tables):
     out = port_ops.fused_filter_agg(tcols, torch.from_numpy(mask),
                                     program=_program(m), tiling=None)
     np.testing.assert_allclose(out.numpy(), _reference(m, cols, mask), **TOL)
+
+
+# -- result types: the kernel programs follow the reference's float32 ----------
+
+F = {"t": "col", "name": "f"}
+D1, D2 = {"t": "col", "name": "d1"}, {"t": "col", "name": "d2"}
+TYPED = {
+    "int32_div_lit": {"t": "bin", "op": "/", "l": {"t": "bin", "op": "-",
+                                                   "l": D1, "r": D2},
+                      "r": {"t": "lit", "value": 7, "kind": "num"}},
+    "int64_div_lit": {"t": "bin", "op": "/", "l": Y,
+                      "r": {"t": "lit", "value": 7, "kind": "num"}},
+    "int32_div_col": {"t": "bin", "op": "/", "l": D1, "r": D2},
+    # (f + 1) * 0.3, not f * 0.3 + 1: XLA contracts a multiply-add into
+    # one fused multiply-add, which the programs do not follow
+    "f32_chain": {"t": "bin", "op": "*",
+                  "l": {"t": "bin", "op": "+", "l": F,
+                        "r": {"t": "lit", "value": 1, "kind": "num"}},
+                  "r": {"t": "lit", "value": 0.3, "kind": "num"}},
+    "case_f32": {"t": "case",
+                 "cond": {"t": "cmp", "op": "<", "l": F,
+                          "r": {"t": "lit", "value": 0.1, "kind": "num"}},
+                 "then": {"t": "bin", "op": "/", "l": D1,
+                          "r": {"t": "lit", "value": 3, "kind": "num"}},
+                 "else": F},
+}
+
+
+@pytest.mark.parametrize("name", sorted(TYPED))
+def test_program_types_follow_the_jitted_reference(name):
+    """A typed program (``Program.specialise``) evaluates each expression
+    to the value the reference's jitted jnp gives, bit for bit: float32
+    where jnp computes in float32 (``int32 / 7``), and ``x / c`` as
+    ``x * (1 / c)``, as XLA compiles it."""
+    import jax
+    from repro.exec.expr import compile_expr as ref_compile
+    from repro.exec.expr import expr_from_dict as ref_from_dict
+    from repro_torch.kernels.program import F32, for_columns
+    rng = np.random.default_rng(13)
+    n = 4096
+    cols = {"d1": rng.integers(8000, 11000, n).astype(np.int32),
+            "d2": rng.integers(1, 7000, n).astype(np.int32),
+            "y": rng.integers(-50, 5000, n).astype(np.int64),
+            "f": rng.normal(size=n).astype(np.float32)}
+    ref = jax.jit(ref_compile(ref_from_dict(TYPED[name])))
+    want = np.asarray(ref({c: jnp.asarray(v) for c, v in cols.items()}),
+                      np.float64)
+    prog = compile_program([], [("sum", TYPED[name])])
+    tcols = {c: torch.from_numpy(v) for c, v in cols.items()}
+    typed = for_columns(prog, tcols)
+    got = eval_slot(typed, 2, tcols).numpy()
+    np.testing.assert_array_equal(got, want)
+    has_f32 = F32 in typed.code[:, 0].tolist()
+    assert has_f32 == (name not in ("int64_div_lit",))
+    assert for_columns(prog, tcols) is typed          # cached per dtypes
+
+
+def test_kernel_division_follows_the_reference_result_type():
+    """``(l_receiptdate - l_shipdate) / 7`` divides int32 dates: float32
+    in the reference. The port's kernel path (the filter_agg kernel's
+    plain version here) and its generic path equal ``repro`` at 1e-9;
+    before the type pass the kernel path divided in f64 and missed by
+    5e-8 relative."""
+    import repro.api as ref_api
+    import repro_torch.api as port_api
+    sql = ("select sum((l_receiptdate - l_shipdate) / 7) as w "
+           "from lineitem where l_quantity < 24")
+    ref = ref_api.connect(tier="local", quota=4)
+    port = port_api.connect(tier="local", quota=4, device="cpu")
+    generic = port_api.connect(tier="local", quota=4, device="cpu")
+    try:
+        for s in (ref, port, generic):
+            s.ensure_tpch(sf=0.01, n_parts=4)
+        want = ref.sql(sql).fetch(ref.store)["w"]
+        res = port.sql(sql)
+        assert [p.kernel for p in res.stats.pipelines][0] == "filter_agg"
+        np.testing.assert_allclose(res.fetch(port.store)["w"], want, **TOL)
+        with port_lower.disabled():
+            got = generic.sql(sql).fetch(generic.store)["w"]
+        np.testing.assert_allclose(got, want, **TOL)
+    finally:
+        for s in (ref, port, generic):
+            s.close()
+
+
+@pytest.mark.parametrize("make", [
+    lambda: roofline.filter_agg_tiling(n_cols=4, n_aggs=2),
+    lambda: roofline.groupby_tiling("groupby_onehot", n_cols=7, n_aggs=8,
+                                    n_groups=6),
+    lambda: roofline.join_probe_tiling(n_cols=5, n_payload=1, n_aggs=2,
+                                       n_groups=7),
+    lambda: roofline.join_probe_tiling(n_cols=4, n_payload=2, n_aggs=2,
+                                       n_groups=0),
+    roofline.bloom_probe_tiling,
+], ids=["filter_agg", "groupby", "join_grouped", "join", "bloom"])
+def test_every_tiling_covers_whole_ctas_on_every_sm(make):
+    """``resident_rows`` has one meaning for every kernel: the rows the
+    whole grid covers per grid-stride step, a whole number of CTAs on
+    each of the H100's SMs."""
+    t = make()
+    assert t.resident_rows == t.ctas * t.block_rows
+    assert t.ctas % roofline.H100_SXM["sm_count"] == 0
+    assert t.ctas >= roofline.H100_SXM["sm_count"]

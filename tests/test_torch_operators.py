@@ -4,9 +4,12 @@
 capacity-bucketed blocks made with numpy from a seed, fed to both
 packages. Masks, integer results and dtypes must match exactly (the
 torch promotion traps — ``int * 0.5`` and ``int / int`` give float32 in
-torch — included); floats within rtol = atol = 1e-9.
+torch — included); floats within rtol = atol = 1e-9. The reference's
+projection runs jitted, as its fragment programs do: XLA turns ``x / c``
+into ``x * (1 / c)``, which moves float32 quotients by an ulp.
 """
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -96,8 +99,8 @@ def test_filter_masks_match(name, seed):
 def test_project_values_and_dtypes_match(name):
     (rc, rm), (pc, pm) = _blocks(2)
     exprs = [("out", EXPRS[name]), ("one", lit(1)), ("copy", col("d"))]
-    want, _ = ref_ops.make_project(
-        [(n, ref_from_dict(e)) for n, e in exprs])(rc, rm)
+    want, _ = jax.jit(ref_ops.make_project(
+        [(n, ref_from_dict(e)) for n, e in exprs]))(rc, rm)
     got, gm = port_ops.make_project(
         [(n, port_from_dict(e)) for n, e in exprs])(pc, pm)
     assert gm is pm
@@ -180,10 +183,28 @@ def test_resolve_device_refuses_a_silent_cpu():
 
 
 def test_sort_and_join_wait_for_the_join_slice():
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        port_ops.make_sort_agg(["g"], [("c", "count", None)])
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        port_ops.make_pk_join_probe("a", "b", [])
+    """The generic sort-aggregate and join probe (ported with the join
+    slice) against the reference's on one seeded block: the block joins
+    itself on ``i`` (a build side with duplicate keys: the first row of
+    each key in build order wins, in both), and groups by ``g``."""
+    (rc, rm), (pc, pm) = _blocks(8)
+    want, wm = ref_ops.make_pk_join_probe("k", "i", ["x2"])(
+        rc, rm, dict(rc, x2=rc["x"]), rm)
+    got, gm = port_ops.make_pk_join_probe("k", "i", ["x2"])(
+        pc, pm, dict(pc, x2=pc["x"]), pm)
+    np.testing.assert_array_equal(_np(gm), _np(wm))
+    np.testing.assert_array_equal(_np(got["x2"]), _np(want["x2"]))
+    aggs = [("s", "sum", col("x")), ("c", "count", None)]
+    want, wm = ref_ops.make_sort_agg(
+        ["g"], [(n, f, ref_from_dict(a) if a else None)
+                for n, f, a in aggs])(rc, rm)
+    got, gm = port_ops.make_sort_agg(
+        ["g"], [(n, f, port_from_dict(a) if a else None)
+                for n, f, a in aggs])(pc, pm)
+    np.testing.assert_array_equal(_np(gm), _np(wm))
+    np.testing.assert_array_equal(_np(got["g"]), _np(want["g"]))
+    for n in ("s", "c"):
+        np.testing.assert_allclose(_np(got[n]), _np(want[n]), **TOL)
 
 
 def test_numpy_helpers_are_the_reference_ones():

@@ -130,39 +130,55 @@ def _strip_kernels(text):
 
 
 @pytest.mark.parametrize("query", ["q6", "q1", "minmax", "q12", "q3",
-                                   "q14"])
+                                   "q14", "q19"])
 def test_explain_matches_apart_from_tiling_and_unported_arms(sessions,
                                                              query):
     ref, port, _, _ = sessions
     sql = CASES[query][0] if query in CASES else QUERIES[query]
     want, got = ref.explain(sql), port.explain(sql)
-    if query in CASES:
+    if query != "q3":
         assert _strip_tiling(got) == _strip_tiling(want)
     else:
-        # same plan; the join/sort/top-k arms are not ported yet
+        # same plan; the sort/top-k arms are not ported yet
         assert "kernel=" not in got
         assert _strip_kernels(got) == _strip_kernels(want)
 
 
-def test_a_query_off_the_slice_fails_naming_the_slice():
-    s = port_api.connect(tier="local", quota=4, device="cpu")
-    try:
-        s.ensure_tpch(sf=0.01, n_parts=4)
-        with pytest.raises(Exception, match="slice 2"):
-            s.sql(QUERIES["q12"], timeout=120)
-    finally:
-        s.close()
+def test_a_query_off_the_slice_fails_naming_the_slice(sessions):
+    """Q3 is off the kernels' path (its sort-aggregate and top-k kernels
+    come with a later slice): it runs on the CPU on the generic torch
+    operators and equals the oracle."""
+    _, port, catalog, _ = sessions
+    res = port.sql(QUERIES["q3"], timeout=120)
+    assert not any(p.kernel for p in res.stats.pipelines)
+    from repro_torch.storage import InputHandler
+    ih = InputHandler(port.store)
+    tables = {}
+    for name in ("lineitem", "orders", "customer"):
+        meta = catalog.tables[name]
+        parts = [ih.read_table(f)[0] for f in meta.files]
+        tables[name] = {c.name: np.concatenate([p[c.name] for p in parts])
+                        for c in meta.schema}
+    lqp, _ = Binder(catalog).bind(parse(QUERIES["q3"]))
+    _assert_same_rows(res.fetch(port.store),
+                      oracle.run(optimize(lqp), tables), "q3 vs oracle")
 
 
 def test_unported_arms_name_their_kernel():
     from repro_torch.exec import lower
     scan = {"t": "scan_table", "columns": ["a", "b"]}
-    cases = {
+    unported = {
         "sort_agg": {"t": "partial_agg", "strategy": "sort",
                      "group_cols": ["a"], "sizes": None,
                      "aggs": [["c", "count", None]], "child": scan},
         "topk": {"t": "final", "sort_keys": [["a", True]], "limit": 5,
                  "project": None, "child": scan},
+    }
+    for kernel, op in unported.items():
+        assert lower.kernel_miss_reason(op) == \
+            f"kernel {kernel} not yet ported"
+        assert lower.lower_fragment(op) is None
+    ported = {
         "bloom_filter": {"t": "semijoin_probe", "key": "a", "bits": 1024,
                          "k": 6, "child": scan},
         "join_probe_agg": {"t": "partial_agg", "strategy": "direct",
@@ -172,49 +188,75 @@ def test_unported_arms_name_their_kernel():
                                      "build": scan, "probe_key": "a",
                                      "build_key": "b", "payload": []}},
     }
-    for kernel, op in cases.items():
-        assert lower.kernel_miss_reason(op) == \
-            f"kernel {kernel} not yet ported"
-        assert lower.lower_fragment(op) is None
+    for kernel, op in ported.items():
+        assert lower.kernel_miss_reason(op) is None
+        assert lower.match_kernel(op) == kernel
+        assert lower.lower_fragment(op).kernel == kernel
 
 
 def test_semijoin_probe_runs_on_the_host_only_on_the_cpu(sessions,
                                                         monkeypatch):
-    """A single-integer-key Bloom filter on a probe-side spec: on the CPU
-    the host probe kills the rows the filter rejects; on the card the
-    fragment wraps the scan in the device probe, as the reference does,
-    and raises (not ported yet) without reaching the host probe."""
-    import torch
+    """A single-integer-key Bloom filter on a probe-side scan chain wraps
+    the scan in the ``bloom_filter`` arm on every device, as the
+    reference does: on the CPU its plain version kills the rows the host
+    probe would, and the host probe is not called. A ``hash64`` filter
+    (the key shapes the kernel cannot take) and a project-rooted chain
+    (the shape the arm does not match) still probe on the host, killing
+    the same rows."""
     from repro_torch.exec import fragment
     from repro_torch.kernels import bloom
     _, port, catalog, _ = sessions
     li = catalog.tables["lineitem"]
     keys = _lineitem(port, catalog)["l_orderkey"]
-    build = np.unique(keys)[::7].astype(np.uint32)
-    words = bloom.bloom_build(build, bloom.bloom_bits_for(build.size),
-                              bloom.BLOOM_K)
+    build = np.unique(keys)[::7]
     col = next(c for c in li.schema if c.name == "l_orderkey")
-    spec = {"op": {"t": "scan_table", "table": "lineitem",
-                   "columns": ["l_orderkey"], "zone_preds": []},
-            "scan_units": list(li.files), "fragment": 0, "n_fragments": 1,
-            "semijoin": dict(bloom.bloom_to_wire(words), key=["l_orderkey"]),
-            "output": {"schema": [{"name": col.name, "kind": col.kind,
-                                   "dtype": col.dtype}],
-                       "partitioning": {"kind": "single"},
-                       "prefix": "test/semijoin_probe"}}
-    res = fragment.execute_fragment(port.store, spec, device="cpu")
+
+    def spec(mode):
+        ku = bloom.keys_u32({"k": build}, ["k"], mode)
+        words = bloom.bloom_build(ku, bloom.bloom_bits_for(build.size),
+                                  bloom.BLOOM_K)
+        return {"op": {"t": "scan_table", "table": "lineitem",
+                       "columns": ["l_orderkey"], "zone_preds": []},
+                "scan_units": list(li.files), "fragment": 0,
+                "n_fragments": 1,
+                "semijoin": dict(bloom.bloom_to_wire(words, mode=mode),
+                                 key=["l_orderkey"]),
+                "output": {"schema": [{"name": col.name, "kind": col.kind,
+                                       "dtype": col.dtype}],
+                           "partitioning": {"kind": "single"},
+                           "prefix": f"test/semijoin_probe_{mode}"}}, words
+
+    u32, words = spec("u32")
     hit = bloom.bloom_probe_np(keys.astype(np.uint32), words,
                                words.size * 32, bloom.BLOOM_K)
+    host_probe = bloom.bloom_probe_np
+
+    def no_host_probe(*a, **k):
+        raise AssertionError("host Bloom probe of a u32 filter")
+    monkeypatch.setattr(bloom, "bloom_probe_np", no_host_probe)
+    res = fragment.execute_fragment(port.store, u32, device="cpu")
+    assert res.stats.kernel == "bloom_filter"
     assert res.stats.semijoin_killed == int((~hit).sum()) > 0
     assert res.stats.rows_out == int(hit.sum())
 
-    def host_probe(*a, **k):
-        raise AssertionError("host Bloom probe on the card")
-    monkeypatch.setattr(bloom, "bloom_probe_np", host_probe)
-    monkeypatch.setattr(fragment, "resolve_device",
-                        lambda device: torch.device("cuda", 0))
-    with pytest.raises(NotImplementedError, match="fused_bloom_filter"):
-        fragment.execute_fragment(port.store, spec, device="cuda")
+    calls = []
+    monkeypatch.setattr(bloom, "bloom_probe_np",
+                        lambda *a, **k: calls.append(1) or host_probe(*a,
+                                                                      **k))
+    h64, words64 = spec("hash64")
+    res = fragment.execute_fragment(port.store, h64, device="cpu")
+    ku = bloom.keys_u32({"l_orderkey": keys}, ["l_orderkey"], "hash64")
+    hit64 = host_probe(ku, words64, words64.size * 32, bloom.BLOOM_K)
+    assert calls and res.stats.kernel == ""
+    assert res.stats.semijoin_killed == int((~hit64).sum()) > 0
+
+    calls.clear()
+    proj = dict(u32, op={"t": "project", "exprs": [
+        ["l_orderkey", {"t": "col", "name": "l_orderkey"}]],
+        "child": u32["op"]})
+    res = fragment.execute_fragment(port.store, proj, device="cpu")
+    assert calls and res.stats.kernel == ""
+    assert res.stats.semijoin_killed == int((~hit).sum())
 
 
 def test_connect_defaults_to_the_card():
