@@ -3,21 +3,25 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
-(four libraries, one nvcc each, in parallel), then drives the port's
+(six libraries, one nvcc each, in parallel), then drives the port's
 main path at SF 1 through ``repro_torch.api.connect()`` (device: the
 card): TPC-H Q6, Q1 and a grouped min/max query (the scan-aggregate
 kernels); Q12, Q14 and Q19, broadcast joins whose join stage runs the
 join-probe kernel; the selective repartition join of the semi-join
 tests, grouped by a dictionary-coded column, whose probe scan runs the
-Bloom-probe kernel and whose join stage runs the join-probe kernel; and
-Q12 again as a repartition join (the join kernel over two exchange
-leaves). It checks that every fragment of each kernel pipeline ran its
-CUDA kernel, that no stage of these queries waits for a kernel of a
-later slice, and that the rows equal the port's oracle; then it holds
-each kernel against its plain torch version at the main path's shapes
-(plus the first 2^20 rows, the whole table and the edge cases) and
-times both. Exits nonzero on any failure. The last two lines are JSON:
-the kernel table, then ``{"ok": true, "device": ...}``.
+Bloom-probe kernel and whose join stage runs the join-probe kernel, and
+the same join grouped by ``l_orderkey`` (Bloom kernel; its later stages
+have no kernel arm in either package); Q12 again as a repartition join
+(the join kernel over two exchange leaves); a GROUP BY ``l_orderkey``
+over lineitem, whose stage-0 fragment runs the sort-aggregate kernel on
+2^23 rows; and TPC-H Q3, whose final stage runs the top-k kernel. It
+checks that every fragment of each kernel pipeline ran its CUDA kernel,
+that no stage of these queries waits for a kernel of a later slice, and
+that the rows equal the port's oracle; then it holds each kernel
+against its plain torch version at the main path's shapes (plus the
+first 2^20 rows, the whole table and the edge cases) and times both.
+Exits nonzero on any failure. The last two lines are JSON: the kernel
+table, then ``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
@@ -40,15 +44,22 @@ REPS = 25
 MINMAX_SQL = ("select l_returnflag, min(l_quantity) as mq, "
               "max(l_tax) as mt from lineitem group by l_returnflag")
 # the selective join of the semi-join tests (tests/test_semijoin.py),
-# grouped by a dictionary-coded column: its later stages are then
-# direct-strategy aggregates. (Grouped by l_orderkey, as there, its merge
-# stage is a sort-strategy aggregate, whose kernel comes with a later
-# slice of the port.)
+# grouped by a dictionary-coded column (its join and merge stages are
+# then direct-strategy aggregates, the join stage on the join kernel) and,
+# as there, by l_orderkey (its join stage is a sort-strategy aggregate
+# over a join and its merge stage ends in a project: neither is a kernel
+# arm, in either package)
 SELECTIVE_JOIN = (
     "select o_orderpriority, sum(l_extendedprice) as rev "
     "from lineitem, orders "
     "where l_orderkey = o_orderkey and o_totalprice > 500000 "
     "group by o_orderpriority")
+SELECTIVE_JOIN_BY_ORDERKEY = SELECTIVE_JOIN.replace(
+    "o_orderpriority", "l_orderkey")
+# the reference's sort-aggregate coverage query (BENCH_pr9.json's
+# "sortagg" row): a GROUP BY over a key that is not dictionary coded
+SORTAGG_SQL = ("select l_orderkey, sum(l_quantity) as s, count(*) as c "
+               "from lineitem group by l_orderkey order by l_orderkey")
 KERNELS = {   # dispatch kernel name → (wrapper module attr, CUDA source, TPU kernel)
     "filter_agg": ("fused_filter_agg", "filter_agg.cu",
                    "src/repro/kernels/filter_agg.py:134"),
@@ -60,11 +71,15 @@ KERNELS = {   # dispatch kernel name → (wrapper module attr, CUDA source, TPU 
                        "src/repro/kernels/join_probe.py:105"),
     "bloom_filter": ("fused_bloom_filter", "bloom.cu",
                      "src/repro/kernels/bloom.py:219"),
+    "sort_agg": ("fused_sort_agg", "sort_agg.cu",
+                 "src/repro/kernels/sort_agg.py:92"),
+    "topk": ("fused_topk", "topk.cu", "src/repro/kernels/topk.py:43"),
 }
 LAUNCH_NAME = {"filter_agg": "filter_agg", "groupby_onehot": "groupby",
                "segmented_minmax": "groupby_minmax",
                "join_probe_agg": "join_probe_agg",
-               "bloom_filter": "bloom_filter"}
+               "bloom_filter": "bloom_filter", "sort_agg": "sort_agg",
+               "topk": "topk"}
 
 
 def log(*a) -> None:
@@ -109,6 +124,8 @@ def main() -> int:
                                          flush))
         kernels.append(bloom_kernel_phase(torch, dev, state, launches,
                                           flush))
+        kernels.extend(sort_kernel_phase(torch, dev, state, launches,
+                                         flush))
     finally:
         for s in state["sessions"]:
             s.close()
@@ -212,9 +229,35 @@ def _kernel_pipeline(name, kernel, res, ran, analyze):
     return p0
 
 
-def query_phase(torch, ext, *, sf=1, n_parts=None, device=None):
+def _capture(ops, captured, current):
+    """Wrap the sort kernels' dispatch wrappers so that the first call of
+    each query keeps its inputs (no copy, no launch); returns a function
+    that restores the wrappers."""
+    saved = {k: getattr(ops, KERNELS[k][0]) for k in ("sort_agg", "topk")}
+
+    def wrap(kernel, fn):
+        def wrapped(*args, **kw):
+            captured.setdefault((current[0], kernel), (args, kw))
+            return fn(*args, **kw)
+        return wrapped
+    for kernel, fn in saved.items():
+        setattr(ops, KERNELS[kernel][0], wrap(kernel, fn))
+
+    def restore():
+        for kernel, fn in saved.items():
+            setattr(ops, KERNELS[kernel][0], fn)
+    return restore
+
+
+def query_phase(torch, ext, *, sf=1, n_parts=None, device=None,
+                config=None):
+    """The main path. ``config``: the main session's CoordinatorConfig
+    (None: the default; at SF 0.01 the default planner folds Q3's final
+    into its merge stage, so a rehearsal there passes the benchmark
+    suites' planner)."""
     from repro_torch.api import connect
     from repro_torch.core import CoordinatorConfig
+    from repro_torch.kernels import ops
     from repro_torch.sql import oracle
     from repro_torch.sql.logical import Binder
     from repro_torch.sql.parser import parse
@@ -222,7 +265,7 @@ def query_phase(torch, ext, *, sf=1, n_parts=None, device=None):
     from repro_torch.sql.queries import QUERIES
     from repro_torch.sql.rules import optimize
 
-    session = connect(quota=16, device=device)
+    session = connect(quota=16, device=device, config=config)
     t0 = time.perf_counter()
     catalog = session.ensure_tpch(sf=sf, n_parts=n_parts)
     log(f"ensure_tpch(sf={sf}): {time.perf_counter() - t0:.1f} s, device "
@@ -238,7 +281,8 @@ def query_phase(torch, ext, *, sf=1, n_parts=None, device=None):
                          use_result_cache=False, pipelined=False,
                          adaptive=False))
     repart.ensure_tpch(sf=sf, n_parts=n_parts)
-    tables = _read(session, catalog, ("lineitem", "orders", "part"))
+    tables = _read(session, catalog, ("lineitem", "orders", "part",
+                                     "customer"))
     lineitem = tables["lineitem"]
     log(f"lineitem: {len(lineitem['l_orderkey'])} rows, orders "
         f"{len(tables['orders']['o_orderkey'])}, part "
@@ -270,14 +314,23 @@ def query_phase(torch, ext, *, sf=1, n_parts=None, device=None):
                ("semijoin", SELECTIVE_JOIN, repart,
                 {"bloom_filter": None, "join_probe_agg": None}),
                ("q12-repart", QUERIES["q12"], repart,
-                {"join_probe_agg": None})]
-    shapes, specs = {}, {}
-    if session.device.type == "cuda":
-        torch.cuda.reset_peak_memory_stats()
+                {"join_probe_agg": None}),
+               ("semijoin-orderkey", SELECTIVE_JOIN_BY_ORDERKEY, repart,
+                {"bloom_filter": None}),
+               ("sortagg", SORTAGG_SQL, session, {"sort_agg": None}),
+               ("q3", QUERIES["q3"], session, {"topk": None})]
+    shapes, specs, frags, captured, current = {}, {}, {}, {}, [None]
+    restore = _capture(ops, captured, current)
+    on_card = session.device.type == "cuda"
+    peaks = {}                               # query -> peak MiB allocated
     ext.reset_launches()                     # the main path starts here
     try:
         for name, sql, sess, kernels in queries:
             records.clear()
+            current[0] = name
+            if on_card:
+                held = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
             handle = sess.submit(sql)
             res = handle.result(timeout=900)
@@ -317,29 +370,46 @@ def query_phase(torch, ext, *, sf=1, n_parts=None, device=None):
                     if build else 0
                 shapes[(name, kernel)] = \
                     max(r["rows_in"] for r in ran) - n_build
+                frags[(name, kernel)] = p0.n_fragments
                 on.append(f"{len(ran)} on {kernel}, compute_s "
                           f"{sum(r['compute_s'] for r in ran):.6f} s")
             lqp, _ = Binder(catalog).bind(parse(sql))
             _assert_rows(rows, oracle.run(optimize(lqp), tables), name)
+            mem = ""
+            if on_card:
+                peaks[name] = torch.cuda.max_memory_allocated() / 2**20
+                mem = (f", peak device memory {peaks[name]:.1f} MiB "
+                       f"({held / 2**20:.1f} MiB held before it)")
             log(f"query {name}: wall {wall:.3f} s, compute_s "
                 f"{sum(r['compute_s'] for r in records):.6f} s over "
                 f"{len(records)} fragments ({'; '.join(on)}), "
-                f"rows = oracle")
+                f"rows = oracle{mem}")
     except BaseException:
         session.close()
         repart.close()
         raise
     finally:
         launches = ext.launches()            # ... and ends here
+        restore()
     log(f"launches on the main path: {launches}")
-    if session.device.type == "cuda":
-        log(f"peak device memory "
-            f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    if on_card:
+        top = max(peaks, key=peaks.get)
+        log(f"peak device memory {peaks[top]:.1f} MiB (query {top})")
         for kernel in KERNELS:
             if launches.get(LAUNCH_NAME[kernel], 0) < 1:
                 session.close()
                 repart.close()
                 raise AssertionError(f"{kernel}: no launch on the main path")
+        # one launch per fragment at least (a pipeline's concurrent first
+        # calls each take the untimed warm-up, so launches may exceed it)
+        for (name, kernel), n in frags.items():
+            if kernel in ("sort_agg", "topk") and \
+                    launches[LAUNCH_NAME[kernel]] < n:
+                session.close()
+                repart.close()
+                raise AssertionError(f"{name}: {kernel} launched "
+                                     f"{launches[LAUNCH_NAME[kernel]]} "
+                                     f"times for {n} fragments")
     rows = {"filter_agg": shapes[("q6", "filter_agg")],
             "groupby_onehot": shapes[("q1", "groupby_onehot")],
             "segmented_minmax": shapes[("minmax", "segmented_minmax")]}
@@ -348,6 +418,8 @@ def query_phase(torch, ext, *, sf=1, n_parts=None, device=None):
                           for q in ("q12", "q14", "q19")},
             "bloom_rows": shapes[("semijoin", "bloom_filter")],
             "bloom_spec": specs["semijoin"], "catalog": catalog,
+            "sort_input": captured[("sortagg", "sort_agg")],
+            "topk_input": captured[("q3", "topk")], "sf": sf,
             "session": session, "sessions": (session, repart)}, launches
 
 
@@ -719,6 +791,215 @@ def bloom_kernel_phase(torch, dev, state, launches, flush):
     log(f"kernel {kind}: negative and >= 2^32 keys at 2^10 and 2^22 bits "
         f"(= plain = host probe), all-masked = plain")
     return _table_row(kind, launches, results, "main", bits=f["bits"])
+
+
+# -- the sort kernels -----------------------------------------------------------
+
+def _same(got, want, ctx, exact=True):
+    """Lane for lane: integers, masks and (``exact``) floats bit for bit;
+    else floats at rtol = atol = 1e-9 with NaN on the same lanes. Returns
+    max |err| over the lanes finite in both."""
+    import numpy as np
+    g, w = got.cpu().numpy(), want.cpu().numpy()
+    if g.shape != w.shape or g.dtype != w.dtype:
+        raise AssertionError(f"{ctx}: {g.dtype}{g.shape} != {w.dtype}"
+                             f"{w.shape}")
+    if g.dtype.kind != "f" or exact:
+        gb = g.view(np.int64 if g.itemsize == 8 else np.int32) \
+            if g.dtype.kind == "f" else g
+        wb = w.view(gb.dtype) if g.dtype.kind == "f" else w
+        if not np.array_equal(gb, wb):
+            raise AssertionError(f"{ctx}: {int((gb != wb).sum())} lanes "
+                                 f"differ")
+        return 0.0
+    np.testing.assert_allclose(g, w, rtol=RTOL, atol=ATOL, equal_nan=True,
+                               err_msg=ctx)
+    finite = np.isfinite(g) & np.isfinite(w)
+    return float(np.max(np.abs(g[finite] - w[finite]), initial=0.0))
+
+
+def _compare_sort_agg(got, want, ctx):
+    for j, (a, b) in enumerate(zip(got[0], want[0])):
+        _same(a, b, f"{ctx} key {j}")
+    _same(got[2], want[2], f"{ctx} mask")
+    return max([_same(a, b, f"{ctx} total {j}", exact=False)
+                for j, (a, b) in enumerate(zip(got[1], want[1]))] + [0.0])
+
+
+def _compare_topk(got, want, ctx):
+    if list(got[0]) != list(want[0]):
+        raise AssertionError(f"{ctx}: columns {list(got[0])} != "
+                             f"{list(want[0])}")
+    _same(got[1], want[1], f"{ctx} mask")
+    for c in want[0]:
+        _same(got[0][c], want[0][c], f"{ctx} {c}")
+    return 0.0
+
+
+def _sort_ops(n, lanes):
+    """A comparison sort's least work: n log2 n compares of every lane."""
+    import math
+    return n * max(math.log2(n), 1.0) * lanes
+
+
+def _library_sort_ms(torch, flush, keys, mask):
+    """The same permutation as the sort-aggregate's network from one
+    library call: a stable torch.sort of the packed key inv << 62 | key
+    (a single key below 2^62, as l_orderkey)."""
+    if len(keys) != 1 or bool((keys[0] >= 1 << 62).any()) \
+            or bool((keys[0] < 0).any()):
+        return None
+    packed = ((~mask).to(torch.int64) << 62) | keys[0]
+    return _time_ms(torch, lambda: torch.sort(packed, stable=True), flush)
+
+
+def sort_kernel_phase(torch, dev, state, launches, flush):
+    """``fused_sort_agg`` and ``fused_topk`` against their plain versions:
+    at the main path's captured inputs (the GROUP BY l_orderkey fragment,
+    Q3's final), at 2^20 rows, and on the edge cases."""
+    import numpy as np
+    from repro_torch.exec.batch import bucket_capacity, from_numpy
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import sort_agg as sa
+    from repro_torch.kernels import topk as tk
+
+    lineitem = state["lineitem"]
+    rng = np.random.default_rng(0)
+    sentinel = np.iinfo(np.int64).max
+
+    # -- sort_agg
+    (keys, values, fns, mask), kw = state["sort_input"]
+    tiling = kw["tiling"]
+    if state["sf"] == 1 and mask.numel() != 1 << 23:
+        raise AssertionError(f"sort_agg main fragment capacity "
+                             f"{mask.numel()}, want 2^23")
+
+    def sa_call(keys, values, fns, mask):
+        return ops.fused_sort_agg(keys, values, fns, mask, tiling=tiling)
+
+    def sa_bound(keys, values, fns, mask):
+        def bound(got):
+            # the mask, keys and argument values read once, the output
+            # keys, totals and mask written once
+            n = mask.numel()
+            nbytes = 2 * n + 16 * n * len(keys) + 8 * n * (
+                sum(1 for f in fns if f != "count") + len(fns))
+            return _bound(nbytes, _sort_ops(n, 1 + len(keys)), INT32_OPS)
+        return bound
+    # the first 2^20 rows of lineitem
+    n20 = min(1 << 20, len(lineitem["l_orderkey"]))
+    blk = from_numpy({c: lineitem[c][:n20] for c in ("l_orderkey",
+                                                       "l_quantity")},
+                     bucket_capacity(n20), dev)
+    key20 = [blk.columns["l_orderkey"].to(torch.int64)]
+    qty = blk.columns["l_quantity"].to(torch.float64)
+    val20 = [None if f == "count" else qty for f in fns]
+    mask20 = blk.mask
+    sa_results, library = {}, {}
+    for label, (k, v, f, m) in (("2^20", (key20, val20, fns, mask20)),
+                                ("main", (keys, values, fns, mask))):
+        sa_results[label] = _hold(
+            torch, flush, f"sort_agg {label}",
+            lambda: sa_call(k, v, f, m),
+            lambda: sa.fused_sort_agg_plain(k, v, f, m),
+            _compare_sort_agg, sa_bound(k, v, f, m),
+            dict(rows=int(m.sum()), capacity=m.numel(),
+                 groups=int(sa_call(k, v, f, m)[2].sum())))
+        library[label] = _library_sort_ms(torch, flush, k, m)
+        log(f"kernel sort_agg {label}: library torch.sort(stable=True) of "
+            f"the packed key {library[label]} ms")
+    # edge cases at 2^16 rows, every aggregate function
+    n = 1 << 16
+    base = np.resize(lineitem["l_orderkey"], n).astype(np.int64)
+    x = rng.normal(size=n) * 100
+    some = rng.random(n) < 0.8
+    xnan = x.copy()
+    xnan[~some & (rng.random(n) < 0.5)] = np.nan
+    xnan[~some & (rng.random(n) < 0.5)] = np.inf
+    kmax = base.copy()
+    kmax[rng.random(n) < 0.01] = sentinel
+    cases = {"all-masked": (base, x, np.zeros(n, bool)),
+             "one group": (np.full(n, 7, np.int64), x, some),
+             "every row its own group": (np.arange(n, dtype=np.int64), x,
+                                         some),
+             "valid INT64_MAX keys": (kmax, x, some),
+             "NaN and inf in masked rows": (base, xnan, some)}
+    all_fns = ["sum", "count", "min", "max"]
+    for label, (k, v, m) in cases.items():
+        kt = [torch.from_numpy(k).to(dev)]
+        vt = torch.from_numpy(v).to(dev)
+        mt = torch.from_numpy(m).to(dev)
+        _compare_sort_agg(sa_call(kt, [vt, None, vt, vt], all_fns, mt),
+                          sa.fused_sort_agg_plain(kt, [vt, None, vt, vt],
+                                                  all_fns, mt),
+                          f"sort_agg {label}")
+    _sync(torch)
+    log(f"kernel sort_agg: {', '.join(cases)} = plain")
+    rows = [_table_row("sort_agg", launches, sa_results, "main",
+                       library_ms=library["main"],
+                       library_call="torch.sort(stable=True) of the packed "
+                                    "key inv << 62 | key: the sort only")]
+
+    # -- topk
+    (tcols, tmask), tkw = state["topk_input"]
+    sort_keys, limit, ttiling = tkw["sort_keys"], tkw["limit"], tkw["tiling"]
+
+    def tk_call(cols, m, sk=sort_keys, lim=limit):
+        return ops.fused_topk(cols, m, sort_keys=sk, limit=lim,
+                              tiling=ttiling)
+
+    def tk_plain(cols, m, sk=sort_keys, lim=limit):
+        return tk.fused_topk_plain(cols, m, sort_keys=sk, limit=lim)
+
+    def tk_bound(cols, m, sk=sort_keys):
+        def bound(got):
+            # the mask and every column read once and written once
+            n = m.numel()
+            width = sum(c.element_size() for c in cols.values())
+            return _bound(2 * n + 2 * n * width,
+                          _sort_ops(n, 1 + len(sk)), INT32_OPS)
+        return bound
+    # 2^20 random rows shaped as Q3's final input
+    r20 = 1 << 20
+    rand = {"rev": torch.from_numpy(rng.normal(size=r20) * 1e5).to(dev),
+            "d": torch.from_numpy(rng.integers(8000, 10000, r20).astype(
+                np.int32)).to(dev),
+            "k": torch.from_numpy(rng.integers(0, 1 << 40, r20)).to(dev),
+            "p": torch.from_numpy(np.zeros(r20, np.int32)).to(dev)}
+    rmask = torch.from_numpy(rng.random(r20) < 0.9).to(dev)
+    rkeys = [("rev", True), ("d", False)]
+    tk_results = {}
+    for label, (c, m, sk) in (("2^20", (rand, rmask, rkeys)),
+                              ("main", (tcols, tmask, sort_keys))):
+        tk_results[label] = _hold(
+            torch, flush, f"topk {label}", lambda: tk_call(c, m, sk),
+            lambda: tk_plain(c, m, sk), _compare_topk, tk_bound(c, m, sk),
+            dict(rows=int(m.sum()), capacity=m.numel(), limit=limit,
+                 sort_keys=[[k, bool(d)] for k, d in sk]))
+    # edge cases at 2^16 rows
+    n = 1 << 16
+    sub = {c: v[:n].clone() for c, v in rand.items()}
+    smask = rmask[:n].clone()
+    ties = dict(sub, rev=torch.full((n,), 3.5, dtype=torch.float64,
+                                    device=dev),
+                d=torch.full((n,), 9000, dtype=torch.int32, device=dev))
+    zeros = dict(sub, rev=torch.where(torch.arange(n, device=dev) % 2 == 0,
+                                      0.0, -0.0).to(torch.float64))
+    nan = dict(sub, k=torch.where(smask, sub["k"].double(), float("nan")))
+    nan["k"][~smask & (torch.arange(n, device=dev) % 3 == 0)] = \
+        float("inf")
+    tcases = {"ties on every sort key": (ties, smask, 10),
+              "-0.0 against +0.0 under desc": (zeros, smask, 100),
+              "limit >= the valid rows": (sub, smask, n),
+              "NaN and inf in masked rows": (nan, smask, 10),
+              "all-masked": (sub, torch.zeros_like(smask), 10)}
+    for label, (c, m, lim) in tcases.items():
+        _compare_topk(tk_call(c, m, rkeys, lim), tk_plain(c, m, rkeys, lim),
+                      f"topk {label}")
+    _sync(torch)
+    log(f"kernel topk: {', '.join(tcases)} = plain")
+    rows.append(_table_row("topk", launches, tk_results, "main"))
+    return rows
 
 
 if __name__ == "__main__":

@@ -20,6 +20,13 @@ from global memory through the 50 MB L2. So no memory budget caps the
 join's build side; the kernel's own limit is its uint32 positions
 (``JOIN_MAX_BUILD_ROWS``), and its wrapper raises past it.
 
+The sort kernels (sort-aggregate, top-k) kept the whole batch resident
+in VMEM, which capped the rows they took (``resident_sort_tiling``).
+Here the sorting network runs in global memory and sorts only tiles in
+shared memory (:func:`sort_tiling`), so what caps the rows is the
+kernels' int32 positions and segment counts (``SORT_MAX_ROWS``, the
+largest power of two they hold), past which their wrappers raise.
+
 Constants: NVIDIA H100 SXM5 80 GB (data sheet and Hopper tuning guide):
 132 SMs, 227 KB of shared memory usable by one block out of 228 KB per
 SM, 2048 resident threads per SM, 3.35 TB/s HBM3, 34 TFLOP/s FP64 on
@@ -51,6 +58,12 @@ _MASK_BYTES = 1         # bool validity mask
 _SMEM_RESERVED = 1024   # per-CTA shared memory the runtime keeps
 _KEY_BYTES = 8          # int64 join keys
 JOIN_MAX_BUILD_ROWS = 1 << 31   # the join kernel's uint32 build positions
+SORT_MAX_ROWS = 1 << 30         # int32 positions and segment counts
+SORT_MAX_LANES = 16             # sortnet.cuh kMaxLanes: invalid flag + keys
+SORT_MAX_AGGS = 8               # sortnet.cuh kMaxScanAggs
+SORT_MAX_TILE = 1 << 12         # rows of the network's shared-memory tile
+_LANE_BYTES = 8                 # one encoded u64 key lane
+_POS_BYTES = 4                  # the int32 position
 
 
 def machine_balance() -> float:
@@ -186,6 +199,30 @@ def bloom_probe_tiling() -> KernelTiling:
     flops = 2 * 5.0 + 6 * 6.0
     bpr = float(_KEY_BYTES + _MASK_BYTES + 1)
     return _finish("bloom_filter", 0, flops, bpr)
+
+
+def sort_tiling(kernel: str, *, n_keys: int) -> KernelTiling:
+    """The sorting network of ``sort_agg`` and ``topk`` (``csrc/
+    sortnet.cuh``) over the invalid flag and ``n_keys`` keys, each an
+    8-byte lane, plus the int32 position.
+
+    ``block_rows`` is the tile whose stages run in one block's shared
+    memory: the largest power of two, at most ``SORT_MAX_TILE``, whose
+    lanes fit half an SM's shared memory (two tiles per SM).
+    ``resident_rows`` is what the kernels accept, ``SORT_MAX_ROWS``.
+    The estimates are per row and per global compare-exchange step:
+    one compare per lane of each pair, the row's lanes read and
+    written once."""
+    lanes = 1 + max(n_keys, 0)
+    row = lanes * _LANE_BYTES + _POS_BYTES
+    fit = (H100_SXM["smem_per_sm"] // 2 - _SMEM_RESERVED) // row
+    block = _pow2_floor(max(min(SORT_MAX_TILE, fit), 2))
+    flops = lanes / 2.0
+    bpr = 2.0 * row
+    ai = flops / bpr
+    dominant = "compute" if ai >= machine_balance() else "memory"
+    return KernelTiling(kernel, block, SORT_MAX_ROWS, block * row, flops,
+                        bpr, ai, dominant)
 
 
 def onehot_group_capacity(n_aggs: int = 4) -> int:

@@ -30,9 +30,17 @@ one-pass vectorized worker loop):
       → :func:`repro_torch.kernels.ops.fused_bloom_filter`, after the
         scan's predicate on the generic torch ops, as the reference does.
 
-The ``sort_agg`` and ``topk`` arms match the same shapes as the
-reference but miss with ``kernel <name> not yet ported``; their kernels
-come with a later slice of the port.
+  ``scan → [filter…] → partial_agg/merge_agg`` (strategy ``sort``: group
+  keys that are not dictionary coded)
+      → :func:`repro_torch.kernels.ops.fused_sort_agg`: the sorting
+        network on ``[invalid] + keys``, a segmented scan and the
+        compaction, after the predicate and the aggregate arguments on
+        the generic torch ops, as the reference evaluates them.
+
+  ``final`` with ORDER BY + LIMIT over ``[filter…]→scan`` (TPC-H Q3's)
+      → :func:`repro_torch.kernels.ops.fused_topk`: the sorting network
+        with per-key directions, then a gather of every column; the
+        coordinator's host sort still runs on the survivors.
 
 A kernel cannot call a Python closure, so the predicate, the aggregate
 arguments and the group id compile to one postfix program
@@ -62,6 +70,7 @@ from repro_torch.exec import operators as xops
 from repro_torch.exec.expr import compile_expr, expr_from_dict
 from repro_torch.exec.operators import decode_group_ids, mixed_radix_strides
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.common import ACC_DTYPE, KEY_DTYPE
 from repro_torch.kernels.program import Program, ProgramError, \
     compile_program
 
@@ -179,10 +188,6 @@ def match_fragment_ex(op: dict) -> tuple[Match | None, str | None]:
     return None, f"no fusible root (op={t})"
 
 
-def _not_ported(kernel: str) -> tuple[None, str]:
-    return None, f"kernel {kernel} not yet ported"
-
-
 def _match_final(op: dict):
     sort_keys = [(k, bool(d)) for k, d in (op.get("sort_keys") or [])]
     limit = op.get("limit")
@@ -199,7 +204,12 @@ def _match_final(op: dict):
     if child["t"] == "scan_table" and not needed <= set(child["columns"]):
         missing = sorted(needed - set(child["columns"]))
         return None, f"columns {missing} absent from scan"
-    return _not_ported("topk")
+    if len(sort_keys) >= roofline.SORT_MAX_LANES:
+        return None, (f"{len(sort_keys)} sort keys exceed the kernel's "
+                      f"{roofline.SORT_MAX_LANES - 1}")
+    return Match("topk", child, preds, [], [], [],
+                 roofline.sort_tiling("topk", n_keys=len(sort_keys)),
+                 sort_keys=sort_keys, limit=int(limit)), None
 
 
 def _match_semijoin(op: dict):
@@ -254,7 +264,15 @@ def _match_agg(op: dict):
                 not needed <= set(child["columns"]):
             missing = sorted(needed - set(child["columns"]))
             return None, f"columns {missing} absent from scan"
-        return _not_ported("sort_agg")
+        if len(group_cols) >= roofline.SORT_MAX_LANES \
+                or len(aggs) > roofline.SORT_MAX_AGGS:
+            return None, (f"{len(group_cols)} keys and {len(aggs)} "
+                          f"aggregates exceed the kernel's "
+                          f"{roofline.SORT_MAX_LANES - 1} and "
+                          f"{roofline.SORT_MAX_AGGS}")
+        return Match("sort_agg", child, preds, group_cols, sizes, aggs,
+                     roofline.sort_tiling("sort_agg",
+                                          n_keys=len(group_cols))), None
     if strategy != "direct":
         return None, f"aggregation strategy {strategy!r} unsupported"
 
@@ -412,6 +430,10 @@ def lower_fragment(op: dict) -> Lowered | None:
         return _lower_join_probe(m)
     if m.kernel == "bloom_filter":
         return _lower_bloom_filter(m)
+    if m.kernel == "sort_agg":
+        return _lower_sort_agg(m)
+    if m.kernel == "topk":
+        return _lower_topk(m)
     return _lower_direct_agg(m)
 
 
@@ -524,3 +546,56 @@ def _lower_bloom_filter(m: Match) -> Lowered:
     return Lowered(fn, [(leaf_id, m.leaf),
                         ("__bloom", {"t": "bloom_words"})],
                    m.kernel, m.tiling)
+
+
+def _lower_sort_agg(m: Match) -> Lowered:
+    """The predicate, the int64 group keys and the f64 aggregate
+    arguments on the generic torch ops (as the reference evaluates them
+    outside its kernel), then one kernel call: sort, segmented scan,
+    compaction. Both wrappers raise on a capacity that is not a power of
+    two (``bucket_capacity`` gives none) and the CUDA one past the
+    kernel's row limit."""
+    pred = _compile_pred(m.preds)
+    group_cols, tiling = list(m.group_cols), m.tiling
+    names = [name for name, _, _ in m.aggs]
+    fns = [fn for _, fn, _ in m.aggs]
+    args = [compile_expr(expr_from_dict(arg)) if arg is not None else None
+            for _, _, arg in m.aggs]
+    leaf_id = "in0"
+
+    def fn(blocks):
+        cols, mask = blocks[leaf_id]
+        m2 = mask if pred is None else mask & pred(cols)
+        keys = [cols[c].to(KEY_DTYPE) for c in group_cols]
+        values = []
+        for f, argf in zip(fns, args):
+            if f == "count":
+                values.append(None)
+                continue
+            v = argf(cols)
+            if not isinstance(v, torch.Tensor):
+                v = torch.tensor(v, device=mask.device)
+            values.append(v.to(mask.device, ACC_DTYPE).expand(mask.shape))
+        out_keys, out_vals, out_mask = kops.fused_sort_agg(
+            keys, values, fns, m2, tiling=tiling)
+        out = dict(zip(group_cols, out_keys))
+        out.update(zip(names, out_vals))
+        return out, out_mask
+    return Lowered(fn, [(leaf_id, m.leaf)], m.kernel, m.tiling)
+
+
+def _lower_topk(m: Match) -> Lowered:
+    """The predicate on the generic torch ops, then one kernel call: the
+    batch sorted by the ORDER BY keys, the mask kept on the first
+    ``limit`` valid rows. Both wrappers raise on a capacity that is not
+    a power of two (``bucket_capacity`` gives none)."""
+    pred = _compile_pred(m.preds)
+    sort_keys, limit, tiling = list(m.sort_keys), m.limit, m.tiling
+    leaf_id = "in0"
+
+    def fn(blocks):
+        cols, mask = blocks[leaf_id]
+        m2 = mask if pred is None else mask & pred(cols)
+        return kops.fused_topk(cols, m2, sort_keys=sort_keys, limit=limit,
+                               tiling=tiling)
+    return Lowered(fn, [(leaf_id, m.leaf)], m.kernel, m.tiling)

@@ -20,6 +20,7 @@ import torch
 
 from repro_torch.exec.expr import compile_expr
 from repro_torch.kernels.common import ACC_DTYPE, KEY_DTYPE, NEUTRAL
+from repro_torch.kernels.sortnet import lexsort_order
 from repro_torch.sql import ast
 
 INT64_SENTINEL = np.iinfo(np.int64).max
@@ -157,16 +158,6 @@ def make_direct_agg(group_cols: list[str], sizes: list[int],
             out_mask = present > 0
         return out, out_mask
     return op, K
-
-
-def lexsort_order(keys: list[torch.Tensor]) -> torch.Tensor:
-    """Stable lexicographic order of rows by ``keys`` (first key most
-    significant), ties in row order, as ``np.lexsort(keys[::-1])``: one
-    stable sort pass per key, last key first."""
-    order = torch.arange(keys[0].shape[0], device=keys[0].device)
-    for k in reversed(keys):
-        order = order[torch.sort(k[order], stable=True).indices]
-    return order
 
 
 def _segment_keys(keys, seg, n: int):

@@ -14,7 +14,8 @@ Launch counts: each kernel wrapper calls :func:`count_launch` under its
 own name where it launches its kernel and nowhere else, so a run can
 show that its main path went through the kernels (``groupby.cu`` serves
 two wrappers, ``groupby`` and ``groupby_minmax``; the join and Bloom
-wrappers count as ``join_probe_agg`` and ``bloom_filter``).
+wrappers count as ``join_probe_agg`` and ``bloom_filter``, the sort
+kernels as ``sort_agg`` and ``topk``).
 """
 
 from __future__ import annotations
@@ -43,8 +44,10 @@ SOURCES = {
     "groupby": "groupby.cu",
     "join_probe": "join_probe.cu",
     "bloom": "bloom.cu",
+    "sort_agg": "sort_agg.cu",
+    "topk": "topk.cu",
 }
-HEADERS = ("scan_agg.cuh", "cuda_error.cuh")
+HEADERS = ("scan_agg.cuh", "sortnet.cuh", "cuda_error.cuh")
 NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
@@ -54,7 +57,10 @@ _P, _I, _L, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, \
 # C signature of each library's launch function: columns, mask and rows,
 # program, [K,] partials and output, grid, stream (the join adds the
 # gathered-column mask, the probe key and the sorted build keys; the
-# Bloom probe takes the key, mask, words, bits, k and its output)
+# Bloom probe takes the key, mask, words, bits, k and its output; the
+# sort kernels take the mask and rows, key columns, their scratch lanes
+# and positions and the tile, then the sort-aggregate's values, scan
+# scratch and outputs, or the top-k's columns, limit and mask)
 _ARGTYPES = {
     "filter_agg": [_P, _P, _I, _P, _L, _P, _P, _P, _P, _I, _P, _P, _I, _I,
                    _P],
@@ -63,6 +69,10 @@ _ARGTYPES = {
     "join_probe": [_P, _P, _I, _U, _P, _L, _P, _I, _P, _L, _P, _P, _P, _P,
                    _I, _I, _P, _P, _I, _I, _P],
     "bloom": [_P, _I, _P, _L, _P, _L, _I, _P, _I, _I, _P],
+    "sort_agg": [_P, _L, _P, _I, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P,
+                 _P, _P],
+    "topk": [_P, _L, _P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _I, _L, _P,
+             _P],
 }
 
 _lock = threading.Lock()
@@ -204,6 +214,20 @@ def column_args(columns: dict, mask, prog, payload: dict | None = None,
     ptrs = (ctypes.c_int64 * MAX_COLS)(*[c.data_ptr() for c in cols])
     types = (ctypes.c_int * MAX_COLS)(*[DTYPE_CODES[c.dtype] for c in cols])
     return cols, ptrs, types, len(cols)
+
+
+def ptr_array(tensors) -> ctypes.c_void_p:
+    """The tensors' device pointers (0 for None) as a C int64 array (the
+    returned pointer keeps the array alive)."""
+    arr = (ctypes.c_int64 * max(len(tensors), 1))(
+        *[t.data_ptr() if t is not None else 0 for t in tensors])
+    return ctypes.cast(arr, ctypes.c_void_p)
+
+
+def int_array(values) -> ctypes.c_void_p:
+    """``values`` as a C int array (kept alive by the returned pointer)."""
+    arr = (ctypes.c_int * max(len(values), 1))(*values)
+    return ctypes.cast(arr, ctypes.c_void_p)
 
 
 def grid_ctas(tiling, n_rows: int, device) -> int:

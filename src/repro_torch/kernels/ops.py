@@ -1,13 +1,13 @@
-"""Public wrappers of the fused scan-aggregate kernels.
+"""Public wrappers of the fused query kernels: the scan-aggregate,
+join-probe and Bloom-probe kernels, and the sort-aggregate and top-k
+kernels over the sorting network of ``csrc/sortnet.cuh``.
 
 Each wrapper dispatches on the device of its inputs: CUDA tensors launch
 the hand-written kernel, CPU tensors run its plain torch version. There
 is no fallback between the two: a CUDA tensor that the kernel cannot
 take, a failed build or a failed launch raises.
 
-The kernels of the reference that the port has not reached yet
-(sort-aggregate, top-k, and the benchmark and model kernels) have no
-wrapper here; ``exec.lower`` reports their arms as not yet ported.
+The reference's benchmark and model kernels have no wrapper here yet.
 """
 
 from __future__ import annotations
@@ -19,6 +19,8 @@ from repro_torch.kernels import filter_agg as _fa
 from repro_torch.kernels import groupby_onehot as _go
 from repro_torch.kernels import join_probe as _jp
 from repro_torch.kernels import segmented_minmax as _smm
+from repro_torch.kernels import sort_agg as _sa
+from repro_torch.kernels import topk as _tk
 from repro_torch.kernels.program import Program
 
 
@@ -69,3 +71,18 @@ def fused_bloom_filter(keys, mask, *, words, bits: int, k: int, tiling):
                                            bits=bits, k=k, tiling=tiling)
     return _bl.fused_bloom_filter_plain(keys, mask, words=words, bits=bits,
                                         k=k)
+
+
+def fused_sort_agg(keys: list, values: list, fns: list, mask, *, tiling):
+    if _on_cuda(mask):
+        return _sa.fused_sort_agg_cuda(keys, values, fns, mask,
+                                       tiling=tiling)
+    return _sa.fused_sort_agg_plain(keys, values, fns, mask)
+
+
+def fused_topk(columns: dict, mask, *, sort_keys: list, limit: int, tiling):
+    if _on_cuda(mask):
+        return _tk.fused_topk_cuda(columns, mask, sort_keys=sort_keys,
+                                   limit=limit, tiling=tiling)
+    return _tk.fused_topk_plain(columns, mask, sort_keys=sort_keys,
+                                limit=limit)

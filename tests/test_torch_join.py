@@ -369,7 +369,11 @@ def test_join_queries_match_repro_and_the_oracle(sessions, query):
                       f"{query} vs oracle")
     kernel = JOIN_KERNEL[query]
     ran = [s["kernel"] for s in rec.stats if s["kernel"]]
-    if kernel is None:             # Q3: every fragment on the generic path
+    if kernel is None:
+        # Q3 under the default planner at SF 0.01: its final is fused
+        # into the merge pipeline, so no stage has a kernel arm, in either
+        # package (under the benchmark planner the final runs topk:
+        # tests/test_torch_sort.py)
         assert ran == [] and not any(p.kernel for p in res.stats.pipelines)
         return
     (join,) = [p for p in res.stats.pipelines if p.kernel]

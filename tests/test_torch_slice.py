@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 
 import repro.api as ref_api
+from repro.exec import lower as ref_lower
 import repro_torch.api as port_api
 from repro_torch.sql import oracle
 from repro_torch.sql.logical import Binder
@@ -125,32 +126,33 @@ def _strip_tiling(text):
     return re.sub(r" block=\d+ resident=\d+", "", text)
 
 
-def _strip_kernels(text):
-    return re.sub(r" · kernel=[^\n]*", "", text)
-
-
 @pytest.mark.parametrize("query", ["q6", "q1", "minmax", "q12", "q3",
                                    "q14", "q19"])
 def test_explain_matches_apart_from_tiling_and_unported_arms(sessions,
                                                              query):
+    """Same plans and kernel arms as repro's EXPLAIN, with repro's
+    interpret-cost gate off (the port has none: on the CPU its arms run
+    their plain versions); only the tiling numbers differ."""
     ref, port, _, _ = sessions
     sql = CASES[query][0] if query in CASES else QUERIES[query]
-    want, got = ref.explain(sql), port.explain(sql)
-    if query != "q3":
-        assert _strip_tiling(got) == _strip_tiling(want)
-    else:
-        # same plan; the sort/top-k arms are not ported yet
-        assert "kernel=" not in got
-        assert _strip_kernels(got) == _strip_kernels(want)
+    with ref_lower.interpret_gate_disabled():
+        want = ref.explain(sql)
+    got = port.explain(sql)
+    assert _strip_tiling(got) == _strip_tiling(want)
 
 
 def test_a_query_off_the_slice_fails_naming_the_slice(sessions):
-    """Q3 is off the kernels' path (its sort-aggregate and top-k kernels
-    come with a later slice): it runs on the CPU on the generic torch
-    operators and equals the oracle."""
+    """Q3 under the default planner at SF 0.01: its final stage is fused
+    into the merge pipeline (``… → project → final``), so no stage has a
+    kernel arm, in either package; none waits for an unported kernel. It
+    runs on the CPU on the generic torch operators and equals the oracle.
+    (Under the benchmark planner its final runs ``topk``:
+    ``tests/test_torch_sort.py``.)"""
     _, port, catalog, _ = sessions
     res = port.sql(QUERIES["q3"], timeout=120)
     assert not any(p.kernel for p in res.stats.pipelines)
+    assert not any("not yet ported" in p.kernel_miss_reason
+                   for p in res.stats.pipelines)
     from repro_torch.storage import InputHandler
     ih = InputHandler(port.store)
     tables = {}
@@ -165,20 +167,16 @@ def test_a_query_off_the_slice_fails_naming_the_slice(sessions):
 
 
 def test_unported_arms_name_their_kernel():
+    """Every arm of the reference's dispatch lowers to its kernel in the
+    port: the sort-aggregate and top-k arms too, since slice 3."""
     from repro_torch.exec import lower
     scan = {"t": "scan_table", "columns": ["a", "b"]}
-    unported = {
+    ported = {
         "sort_agg": {"t": "partial_agg", "strategy": "sort",
                      "group_cols": ["a"], "sizes": None,
                      "aggs": [["c", "count", None]], "child": scan},
         "topk": {"t": "final", "sort_keys": [["a", True]], "limit": 5,
                  "project": None, "child": scan},
-    }
-    for kernel, op in unported.items():
-        assert lower.kernel_miss_reason(op) == \
-            f"kernel {kernel} not yet ported"
-        assert lower.lower_fragment(op) is None
-    ported = {
         "bloom_filter": {"t": "semijoin_probe", "key": "a", "bits": 1024,
                          "k": 6, "child": scan},
         "join_probe_agg": {"t": "partial_agg", "strategy": "direct",

@@ -1,0 +1,480 @@
+"""The port's sort path against the reference: the sorting network's and
+segmented scan's plain twins, the sort-aggregate and top-k kernels' plain
+versions, their dispatch arms, and end to end a non-dictionary GROUP BY
+and TPC-H Q3.
+
+Inputs are made with numpy from a seed and fed to both packages; the
+reference's Pallas kernels run in interpret mode, as its own CPU tests
+run them. Keys, masks, integer columns and top-k's columns must match
+exactly; sums within rtol = atol = 1e-9 (the reference's row parity
+tolerance: the port's plain scan takes the same steps, the reference's
+kernel may round its adds in another order). Queries run at SF 0.01 on
+the port's CPU path (``device="cpu"``: the kernels' plain versions)."""
+
+import threading
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro.api as ref_api
+from repro.core import CoordinatorConfig as RefCoordinatorConfig
+from repro.exec import lower as ref_lower
+from repro.exec.batch import from_numpy as ref_from_numpy
+from repro.exec.expr import compile_expr as ref_compile
+from repro.exec.expr import expr_from_dict as ref_from_dict
+from repro.kernels import sortnet as ref_sortnet
+from repro.kernels.sort_agg import fused_sort_agg as ref_sort_agg
+from repro.kernels.topk import fused_topk as ref_topk
+from repro.sql.physical import PlannerConfig as RefPlannerConfig
+import repro_torch.api as port_api
+from repro_torch.analysis import roofline
+from repro_torch.core import CoordinatorConfig
+from repro_torch.exec import lower as port_lower
+from repro_torch.exec import operators as port_ops
+from repro_torch.exec.batch import bucket_capacity
+from repro_torch.exec.batch import from_numpy as port_from_numpy
+from repro_torch.exec.expr import compile_expr as port_compile
+from repro_torch.exec.expr import expr_from_dict as port_from_dict
+from repro_torch.kernels import ops, sortnet
+from repro_torch.kernels import sort_agg as sa
+from repro_torch.kernels import topk as tk
+from repro_torch.sql import oracle
+from repro_torch.sql.logical import Binder
+from repro_torch.sql.parser import parse
+from repro_torch.sql.physical import PlannerConfig
+from repro_torch.sql.queries import QUERIES
+from repro_torch.sql.rules import optimize
+from repro_torch.storage import InputHandler
+
+TOL = dict(rtol=1e-9, atol=1e-9)
+SENTINEL = np.iinfo(np.int64).max
+# the reference's own sort-aggregate coverage query (BENCH_pr9.json's
+# "sortagg" row): a GROUP BY over a key that is not dictionary coded
+SORTAGG_SQL = ("select l_orderkey, sum(l_quantity) as s, count(*) as c "
+               "from lineitem group by l_orderkey order by l_orderkey")
+# the benchmark suites' planner (benchmarks/suites.py): Q3's final is a
+# pipeline of its own even at SF 0.01
+BENCH_PLANNER = dict(bytes_per_worker=500_000,
+                     broadcast_threshold_bytes=250_000,
+                     exchange_partitions=4)
+
+
+def col(n):
+    return {"t": "col", "name": n}
+
+
+def lit(v):
+    return {"t": "lit", "value": v, "kind": "num"}
+
+
+def _np(x):
+    return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+# -- sortnet's plain twins ----------------------------------------------------------
+
+def _sort_inputs(n: int, seed: int):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, 3, n).astype(np.int32),             # ties
+            rng.integers(-2, 2, n).astype(np.int64),            # ties
+            rng.normal(size=n).round(1),                         # ties, ±0
+            rng.normal(size=n)]                                  # carried
+
+
+@pytest.mark.parametrize("n", [1, 2, 1024])
+@pytest.mark.parametrize("directions", [[1, 1, 1], [1, -1, 1], [-1, 1, -1]])
+def test_lexsort_order_is_the_bitonic_network(n, directions):
+    arrays = _sort_inputs(n, seed=n)
+    arrays[2][::5] = -0.0
+    want = ref_sortnet.bitonic_sort([jnp.asarray(a) for a in arrays],
+                                    num_keys=3, directions=directions)
+    order = sortnet.lexsort_order(
+        [torch.from_numpy(a) for a in arrays[:3]], directions)
+    for a, w in zip(arrays, want):
+        np.testing.assert_array_equal(a[order.numpy()], np.asarray(w))
+
+
+@pytest.mark.parametrize("n", [1, 2, 1024])
+@pytest.mark.parametrize("fn", ["sum", "min", "max"])
+def test_segmented_scan_matches_the_reference(n, fn):
+    rng = np.random.default_rng(n + len(fn))
+    vals = rng.normal(size=n)
+    heads = rng.random(n) < 0.1
+    ref_fn, port_fn, ident = {
+        "sum": (jnp.add, torch.add, 0.0),
+        "min": (jnp.minimum, torch.minimum, np.inf),
+        "max": (jnp.maximum, torch.maximum, -np.inf)}[fn]
+    want = ref_sortnet.segmented_scan(jnp.asarray(vals), jnp.asarray(heads),
+                                      ref_fn, ident)
+    got = sortnet.segmented_scan(torch.from_numpy(vals),
+                                 torch.from_numpy(heads), port_fn, ident)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_lexsort_descending_keeps_the_int64_minimum_and_nan_order():
+    """Descending by ``torch.sort(descending=True)``, not negation: the
+    int64 minimum stays last; NaN sorts above +inf (first when
+    descending), as the CUDA key encoding puts it."""
+    k = torch.tensor([0, np.iinfo(np.int64).min, 5, -1], dtype=torch.int64)
+    assert sortnet.lexsort_order([k], [-1]).tolist() == [2, 0, 3, 1]
+    f = torch.tensor([1.0, float("nan"), float("inf"), -0.0, 0.0])
+    assert sortnet.lexsort_order([f]).tolist() == [3, 4, 0, 2, 1]
+    assert sortnet.lexsort_order([f], [-1]).tolist() == [1, 2, 0, 3, 4]
+
+
+# -- the kernels' plain versions against the reference's kernels ----------------------
+
+SA_AGGS = [("s", "sum", {"t": "bin", "op": "*", "l": col("x"),
+                         "r": col("y")}),
+           ("c", "count", None),
+           ("lo", "min", col("x")),
+           ("hi", "max", {"t": "bin", "op": "/", "l": col("i"),
+                          "r": lit(3)})]
+SA_PRED = {"t": "cmp", "op": "<", "l": col("y"), "r": lit(0.8)}
+
+
+def _sa_block(case: str, n: int, seed: int):
+    rng = np.random.default_rng(seed)
+    cols = {"g": rng.integers(0, 40, n).astype(np.int64),
+            "i": rng.integers(-3, 3, n).astype(np.int64),
+            "x": rng.normal(size=n), "y": rng.random(n)}
+    mask = rng.random(n) < 0.8
+    if case == "nan":                      # NaN / inf in masked rows
+        cols["x"][~mask & (rng.random(n) < 0.5)] = np.nan
+        cols["x"][~mask & (rng.random(n) < 0.5)] = np.inf
+    if case == "sentinel":                 # a valid row keyed INT64_MAX
+        cols["g"][rng.random(n) < 0.05] = SENTINEL
+    if case == "all-masked":
+        mask[:] = False
+    return cols, mask
+
+
+def _assert_totals(got, got_mask, want, name):
+    """Segment totals at 1e-9. A sum over a masked segment that holds a
+    NaN or inf is NaN in the port (``v * maskf``, IEEE) and 0 in the
+    reference's interpreted kernel: XLA's simplifier rewrites
+    ``v * convert(mask)`` to a select when it compiles the kernel body.
+    Such a lane's mask is false; its total is compared as 0."""
+    odd = np.isnan(got) & ~got_mask
+    np.testing.assert_allclose(np.where(odd, 0.0, got), want, err_msg=name,
+                               **TOL)
+
+
+def _port_values(cols, mask, aggs):
+    vals = []
+    for _, fn, arg in aggs:
+        if fn == "count":
+            vals.append(None)
+            continue
+        v = port_compile(port_from_dict(arg))(cols)
+        vals.append(torch.as_tensor(v, dtype=torch.float64)
+                    .expand(mask.shape).contiguous())
+    return vals
+
+
+@pytest.mark.parametrize("case,group_cols,pred", [
+    ("plain", ["g"], False), ("pred", ["g"], True), ("nan", ["g"], True),
+    ("sentinel", ["g"], False), ("all-masked", ["g"], False),
+    ("two-keys", ["g", "i"], True)])
+def test_sort_agg_plain_matches_pallas(case, group_cols, pred):
+    n = 256
+    cols, mask = _sa_block(case, n, seed=len(case))
+    rc, rm = ref_from_numpy(cols, n).columns, jnp.asarray(mask)
+    pc, pm = port_from_numpy(cols, n, "cpu").columns, torch.from_numpy(mask)
+    preds = [SA_PRED] if pred else []
+    want, wmask = ref_sort_agg(
+        rc, rm, group_cols=group_cols,
+        pred=ref_lower._compile_pred(preds),
+        aggs=[(a, f, ref_compile(ref_from_dict(e)) if e else None)
+              for a, f, e in SA_AGGS], interpret=True)
+    if pred:
+        pm = pm & port_compile(port_from_dict(SA_PRED))(pc)
+    keys, values, gmask = sa.fused_sort_agg_plain(
+        [pc[c] for c in group_cols], _port_values(pc, pm, SA_AGGS),
+        [f for _, f, _ in SA_AGGS], pm)
+    np.testing.assert_array_equal(gmask.numpy(), np.asarray(wmask))
+    for c, k in zip(group_cols, keys):
+        np.testing.assert_array_equal(k.numpy(), np.asarray(want[c]))
+    for (name, _, _), v in zip(SA_AGGS, values):
+        _assert_totals(v.numpy(), gmask.numpy(), np.asarray(want[name]),
+                       name)
+    if case == "all-masked":
+        assert not gmask.any()
+    else:
+        assert int(gmask.sum()) > 1
+
+
+def _tk_block(case: str, n: int, seed: int):
+    rng = np.random.default_rng(seed)
+    cols = {"rev": rng.normal(size=n).round(1),
+            "d": rng.integers(0, 4, n).astype(np.int32),
+            "k": rng.integers(0, 1 << 40, n).astype(np.int64),
+            "p": rng.integers(0, 3, n).astype(np.int32)}
+    cols["rev"][::6] = -0.0                # ties of -0.0 with +0.0
+    mask = rng.random(n) < 0.9
+    if case == "nan":                      # NaN in masked rows' columns
+        cols["k"] = cols["k"].astype(np.float64)
+        cols["k"][~mask] = np.nan
+    if case == "all-masked":
+        mask[:] = False
+    return cols, mask
+
+
+@pytest.mark.parametrize("case,limit,pred", [
+    ("plain", 10, False), ("pred", 10, True), ("nan", 25, False),
+    ("all-masked", 10, False), ("limit-past-valid", 600, True)])
+def test_topk_plain_matches_pallas(case, limit, pred):
+    n = 256 if case != "limit-past-valid" else 512
+    cols, mask = _tk_block(case, n, seed=len(case))
+    sort_keys = [("rev", True), ("d", False)]
+    rc, rm = ref_from_numpy(cols, n).columns, jnp.asarray(mask)
+    pc, pm = port_from_numpy(cols, n, "cpu").columns, torch.from_numpy(mask)
+    tpred = {"t": "cmp", "op": ">", "l": col("p"), "r": lit(0)}
+    want, wmask = ref_topk(
+        rc, rm, pred=ref_lower._compile_pred([tpred] if pred else []),
+        sort_keys=sort_keys, limit=limit, interpret=True)
+    if pred:
+        pm = pm & port_compile(port_from_dict(tpred))(pc)
+    got, gmask = tk.fused_topk_plain(pc, pm, sort_keys=sort_keys,
+                                     limit=limit)
+    assert list(got) == list(want)
+    np.testing.assert_array_equal(gmask.numpy(), np.asarray(wmask))
+    for c in want:
+        assert got[c].dtype == pc[c].dtype
+        np.testing.assert_array_equal(got[c].numpy(), np.asarray(want[c]))
+    assert int(gmask.sum()) == min(limit, int(pm.sum()))
+
+
+def test_plain_versions_refuse_what_the_kernel_cannot_take():
+    mask = torch.ones(1000, dtype=torch.bool)
+    with pytest.raises(ValueError, match="power-of-two"):
+        sa.fused_sort_agg_plain([torch.zeros(1000, dtype=torch.int64)],
+                                [None], ["count"], mask)
+    with pytest.raises(ValueError, match="power-of-two"):
+        tk.fused_topk_plain({"a": torch.zeros(1000)}, mask,
+                            sort_keys=[("a", False)], limit=3)
+    with pytest.raises(ValueError, match="int64"):
+        sa.fused_sort_agg_plain([torch.zeros(1024, dtype=torch.int32)],
+                                [None], ["count"],
+                                torch.ones(1024, dtype=torch.bool))
+
+
+# -- the dispatch arms ----------------------------------------------------------------
+
+SCAN = {"t": "scan_table", "columns": ["g", "i", "x", "y"]}
+
+
+def _sort_agg_op(group_cols, pred):
+    child = SCAN if not pred else {"t": "filter", "pred": SA_PRED,
+                                   "child": SCAN}
+    return {"t": "partial_agg", "strategy": "sort", "group_cols": group_cols,
+            "sizes": None, "aggs": [list(a) for a in SA_AGGS],
+            "child": child}
+
+
+def _both(cols, n, mask):
+    cap = bucket_capacity(n)
+    rb, pb = ref_from_numpy(cols, cap), port_from_numpy(cols, cap, "cpu")
+    full = np.zeros(cap, bool)
+    full[:n] = mask
+    return ({"in0": (rb.columns, rb.mask & jnp.asarray(full))},
+            {"in0": (pb.columns, pb.mask & torch.from_numpy(full))})
+
+
+@pytest.mark.parametrize("group_cols,pred", [(["g"], True),
+                                             (["i", "g"], False)])
+def test_sort_agg_arm_matches_the_reference_arm(group_cols, pred):
+    cols, mask = _sa_block("nan", 700, seed=7)
+    op = _sort_agg_op(group_cols, pred)
+    rblocks, pblocks = _both(cols, 700, mask)
+    with ref_lower.interpret_gate_disabled():
+        ref = ref_lower.lower_fragment(op)
+    port = port_lower.lower_fragment(op)
+    assert ref.kernel == port.kernel == "sort_agg"
+    assert port.leaves == ref.leaves
+    want, wmask = ref.fn(rblocks)
+    got, gmask = port.fn(pblocks)
+    assert sorted(got) == sorted(want)
+    np.testing.assert_array_equal(gmask.numpy(), np.asarray(wmask))
+    for c in want:
+        assert got[c].dtype == (torch.int64 if c in group_cols
+                                else torch.float64)
+        if c in group_cols:
+            np.testing.assert_array_equal(got[c].numpy(), np.asarray(want[c]))
+        else:
+            _assert_totals(got[c].numpy(), gmask.numpy(),
+                           np.asarray(want[c]), c)
+    # and lane for lane (NaN included) the generic torch sort-aggregate
+    generic, generic_mask = port_ops.make_sort_agg(
+        group_cols, [(a, f, port_from_dict(e) if e else None)
+                     for a, f, e in SA_AGGS])(
+        pblocks["in0"][0], pblocks["in0"][1] & (
+            port_compile(port_from_dict(SA_PRED))(pblocks["in0"][0])
+            if pred else True))
+    assert torch.equal(gmask, generic_mask)
+    for c in generic:
+        np.testing.assert_allclose(got[c].numpy(), generic[c].numpy(),
+                                   err_msg=c, **TOL)
+
+
+@pytest.mark.parametrize("pred", [False, True])
+def test_topk_arm_matches_the_reference_arm(pred):
+    cols, mask = _tk_block("plain", 700, seed=8)
+    scan = {"t": "scan_exchange", "source": 0}
+    child = scan if not pred else {
+        "t": "filter", "pred": {"t": "cmp", "op": ">", "l": col("p"),
+                                "r": lit(0)}, "child": scan}
+    op = {"t": "final", "sort_keys": [["rev", True], ["d", False]],
+          "limit": 10, "project": None, "child": child}
+    rblocks, pblocks = _both(cols, 700, mask)
+    with ref_lower.interpret_gate_disabled():
+        ref = ref_lower.lower_fragment(op)
+    port = port_lower.lower_fragment(op)
+    assert ref.kernel == port.kernel == "topk"
+    want, wmask = ref.fn(rblocks)
+    got, gmask = port.fn(pblocks)
+    np.testing.assert_array_equal(gmask.numpy(), np.asarray(wmask))
+    assert int(gmask.sum()) == 10
+    for c in want:
+        np.testing.assert_array_equal(got[c].numpy(), np.asarray(want[c]))
+
+
+def test_sort_tiling_fits_two_tiles_per_sm():
+    for kernel, n_keys in (("sort_agg", 1), ("topk", 2), ("topk", 15)):
+        t = roofline.sort_tiling(kernel, n_keys=n_keys)
+        assert t.block_rows & (t.block_rows - 1) == 0
+        assert t.resident_rows == roofline.SORT_MAX_ROWS
+        assert 2 * (t.smem_bytes + 1024) <= \
+            roofline.H100_SXM["smem_per_sm"]
+        assert t.dominant == "memory"
+    assert roofline.sort_tiling("sort_agg", n_keys=1).block_rows == 1 << 12
+    info = port_lower.kernel_info(_sort_agg_op(["g"], False))
+    assert info["kernel"] == "sort_agg" and info["tiling"]["block_rows"]
+
+
+def test_too_many_sort_keys_miss_with_a_reason():
+    op = {"t": "final", "sort_keys": [[f"c{j}", False] for j in range(16)],
+          "limit": 3, "project": None,
+          "child": {"t": "scan_exchange", "source": 0}}
+    assert "exceed the kernel's 15" in port_lower.kernel_miss_reason(op)
+
+
+def test_ops_dispatch_runs_the_plain_versions_on_cpu():
+    cols, mask = _sa_block("plain", 1024, seed=3)
+    pc = port_from_numpy(cols, 1024, "cpu").columns
+    pm = torch.from_numpy(mask)
+    tiling = roofline.sort_tiling("sort_agg", n_keys=1)
+    vals = _port_values(pc, pm, SA_AGGS)
+    fns = [f for _, f, _ in SA_AGGS]
+    got = ops.fused_sort_agg([pc["g"]], vals, fns, pm, tiling=tiling)
+    want = sa.fused_sort_agg_plain([pc["g"]], vals, fns, pm)
+    assert torch.equal(got[2], want[2]) and torch.equal(got[0][0],
+                                                        want[0][0])
+    out, om = ops.fused_topk(pc, pm, sort_keys=[("x", True)], limit=4,
+                             tiling=roofline.sort_tiling("topk", n_keys=1))
+    assert int(om.sum()) == 4 and torch.equal(out["x"][:4],
+                                              pc["x"][pm].sort(
+                                                  descending=True)
+                                              .values[:4])
+
+
+# -- end to end -----------------------------------------------------------------------
+
+class _Recorder:
+    def __init__(self, session):
+        self.stats, self._lock, self._inner = [], threading.Lock(), \
+            session.handler
+        session.handler = self
+
+    def __call__(self, payload):
+        resp, runtime = self._inner(payload)
+        with self._lock:
+            self.stats.append(resp["stats"])
+        return resp, runtime
+
+
+@pytest.fixture(scope="module")
+def sessions():
+    ref = ref_api.connect(tier="local", quota=8)
+    port = port_api.connect(tier="local", quota=8, device="cpu")
+    ref.ensure_tpch(sf=0.01, n_parts=4)
+    catalog = port.ensure_tpch(sf=0.01, n_parts=4)
+    rec = _Recorder(port)
+    ih = InputHandler(port.store)
+    tables = {}
+    for name in ("lineitem", "orders", "customer"):
+        meta = catalog.tables[name]
+        parts = [ih.read_table(f)[0] for f in meta.files]
+        tables[name] = {c.name: np.concatenate([p[c.name] for p in parts])
+                        for c in meta.schema}
+    yield ref, port, catalog, rec, tables
+    ref.close()
+    port.close()
+
+
+def _assert_same_rows(got, want, ctx):
+    keys = sorted(want)
+    assert sorted(got) == keys, ctx
+    arrs_g = [np.asarray(got[k], np.float64) for k in keys]
+    arrs_w = [np.asarray(want[k], np.float64) for k in keys]
+    og, ow = np.lexsort(arrs_g), np.lexsort(arrs_w)
+    for k, g, w in zip(keys, arrs_g, arrs_w):
+        np.testing.assert_allclose(g[og], w[ow], err_msg=f"{ctx} :: {k}",
+                                   **TOL)
+
+
+def _oracle(catalog, tables, sql):
+    lqp, _ = Binder(catalog).bind(parse(sql))
+    return oracle.run(optimize(lqp), tables)
+
+
+def test_sortagg_query_runs_the_sort_agg_arm(sessions):
+    ref, port, catalog, rec, tables = sessions
+    rec.stats.clear()
+    res = port.sql(SORTAGG_SQL)
+    got = res.fetch(port.store)
+    (stage0,) = [p for p in res.stats.pipelines if p.kernel]
+    assert stage0.kernel == "sort_agg"
+    assert stage0.kernel_fragments == stage0.n_fragments >= 1
+    assert [s["kernel"] for s in rec.stats if s["kernel"]] == \
+        ["sort_agg"] * stage0.n_fragments
+    assert not any("not yet ported" in p.kernel_miss_reason
+                   for p in res.stats.pipelines)
+    assert got["l_orderkey"].tolist() == sorted(got["l_orderkey"].tolist())
+    _assert_same_rows(got, _oracle(catalog, tables, SORTAGG_SQL),
+                      "sortagg vs oracle")
+    _assert_same_rows(got, ref.sql(SORTAGG_SQL).fetch(ref.store),
+                      "sortagg vs repro")
+
+
+def test_q3_final_runs_the_topk_arm_under_the_benchmark_planner(sessions):
+    ref, port, catalog, rec, tables = sessions
+    bench = port_api.connect(
+        store=port.store, quota=8, device="cpu",
+        config=CoordinatorConfig(planner=PlannerConfig(**BENCH_PLANNER)))
+    rbench = ref_api.connect(
+        store=ref.store, quota=8,
+        config=RefCoordinatorConfig(planner=RefPlannerConfig(
+            **BENCH_PLANNER)))
+    try:
+        bench.ensure_tpch(sf=0.01, n_parts=4)
+        rbench.ensure_tpch(sf=0.01, n_parts=4)
+        res = bench.sql(QUERIES["q3"])
+        got = res.fetch(bench.store)
+        assert [p.kernel for p in res.stats.pipelines if p.kernel] == \
+            ["topk"]
+        (final,) = [p for p in res.stats.pipelines if p.kernel]
+        assert final.kernel_fragments == final.n_fragments == 1
+        assert not any("not yet ported" in p.kernel_miss_reason
+                       for p in res.stats.pipelines)
+        assert len(got["revenue"]) == 10
+        assert list(got["revenue"]) == sorted(got["revenue"], reverse=True)
+        _assert_same_rows(got, _oracle(catalog, tables, QUERIES["q3"]),
+                          "q3 vs oracle")
+        _assert_same_rows(got, rbench.sql(QUERIES["q3"]).fetch(ref.store),
+                          "q3 vs repro")
+    finally:
+        bench.close()
+        rbench.close()
