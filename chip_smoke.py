@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
-(six libraries, one nvcc each, in parallel), then drives the port's
+(ten libraries, one nvcc each, in parallel), then drives the port's
 main path at SF 1 through ``repro_torch.api.connect()`` (device: the
 card): TPC-H Q6, Q1 and a grouped min/max query (the scan-aggregate
 kernels); Q12, Q14 and Q19, broadcast joins whose join stage runs the
@@ -20,6 +20,14 @@ that no stage of these queries waits for a kernel of a later slice, and
 that the rows equal the port's oracle; then it holds each kernel
 against its plain torch version at the main path's shapes (plus the
 first 2^20 rows, the whole table and the edge cases) and times both.
+Last, the path of the four kernels no query reaches: it drives
+``repro_torch.kernels.ops``' ``flash_attention`` (granite-3-2b at 4096
+and 32768 tokens, hymba-1.5b's window), ``ssd_scan`` (mamba2-130m,
+hymba-1.5b's mixer), ``filter_agg`` (TPC-H Q6 over the SF 1 lineitem
+columns, against the query's revenue) and ``groupby_onehot`` (Q1's group
+id) with their launch counts reset, then holds each against its plain
+version and times it beside its bound and, where one PyTorch call
+computes the same function, that call.
 Exits nonzero on any failure. The last two lines are JSON: the kernel
 table, then ``{"ok": true, "device": ...}``.
 """
@@ -39,6 +47,8 @@ FP64_FLOPS = 34e12             # H100 SXM5 FP64 on the CUDA cores (data sheet)
 # H100 SXM5 float32 rate outside the tensor cores (data sheet): at least
 # the 32-bit integer rate, so the Bloom kernel's bound stays a least time
 INT32_OPS = 67e12
+FP32_FLOPS = 67e12             # H100 SXM5 float32 on the CUDA cores
+BF16_FLOPS = 989e12            # H100 SXM5 dense bf16 on the tensor cores
 RTOL = ATOL = 1e-9             # as the reference's row parity tests
 REPS = 25
 MINMAX_SQL = ("select l_returnflag, min(l_quantity) as mq, "
@@ -74,6 +84,20 @@ KERNELS = {   # dispatch kernel name → (wrapper module attr, CUDA source, TPU 
     "sort_agg": ("fused_sort_agg", "sort_agg.cu",
                  "src/repro/kernels/sort_agg.py:92"),
     "topk": ("fused_topk", "topk.cu", "src/repro/kernels/topk.py:43"),
+}
+# the kernels no query reaches: ops wrapper → (CUDA source, TPU kernel,
+# launch counter)
+STANDALONE = {
+    "flash_attention": ("flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:88",
+                        "flash_attention"),
+    "ssd_scan": ("ssd_scan.cu", "src/repro/kernels/ssd_scan.py:65",
+                 "ssd_scan"),
+    "filter_agg": ("filter_agg_q6.cu", "src/repro/kernels/filter_agg.py:61",
+                   "filter_agg_q6"),
+    "groupby_onehot": ("groupby_onehot.cu",
+                       "src/repro/kernels/groupby_onehot.py:52",
+                       "groupby_onehot"),
 }
 LAUNCH_NAME = {"filter_agg": "filter_agg", "groupby_onehot": "groupby",
                "segmented_minmax": "groupby_minmax",
@@ -126,6 +150,10 @@ def main() -> int:
                                           flush))
         kernels.extend(sort_kernel_phase(torch, dev, state, launches,
                                          flush))
+        t0 = time.perf_counter()
+        kernels.extend(standalone_kernel_phase(torch, ext, dev, state,
+                                               flush))
+        log(f"standalone kernel phase: {time.perf_counter() - t0:.1f} s")
     finally:
         for s in state["sessions"]:
             s.close()
@@ -136,7 +164,7 @@ def main() -> int:
     return 0
 
 
-# -- query phase: the port's main path -------------------------------------------
+# -- query phase: the port's main path ----------------------------------------
 
 def _sorted_rows(cols):
     import numpy as np
@@ -320,6 +348,7 @@ def query_phase(torch, ext, *, sf=1, n_parts=None, device=None,
                ("sortagg", SORTAGG_SQL, session, {"sort_agg": None}),
                ("q3", QUERIES["q3"], session, {"topk": None})]
     shapes, specs, frags, captured, current = {}, {}, {}, {}, [None]
+    fetched = {}
     restore = _capture(ops, captured, current)
     on_card = session.device.type == "cuda"
     peaks = {}                               # query -> peak MiB allocated
@@ -335,7 +364,7 @@ def query_phase(torch, ext, *, sf=1, n_parts=None, device=None,
             handle = sess.submit(sql)
             res = handle.result(timeout=900)
             wall = time.perf_counter() - t0
-            rows = res.fetch(sess.store)
+            rows = fetched[name] = res.fetch(sess.store)
             analyze = handle.explain_analyze()
             # a probe scan that carries a semi-join filter runs the Bloom
             # kernel in any query; no other kernel may run, and no stage
@@ -420,10 +449,11 @@ def query_phase(torch, ext, *, sf=1, n_parts=None, device=None,
             "bloom_spec": specs["semijoin"], "catalog": catalog,
             "sort_input": captured[("sortagg", "sort_agg")],
             "topk_input": captured[("q3", "topk")], "sf": sf,
+            "q6_rows": fetched["q6"],
             "session": session, "sessions": (session, repart)}, launches
 
 
-# -- kernel phase: each kernel against its plain version --------------------------
+# -- kernel phase: each kernel against its plain version ----------------------
 
 def _sync(torch):
     if torch.cuda.is_available():
@@ -500,41 +530,56 @@ def _bound(nbytes, ops, peak=FP64_FLOPS):
         ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def _hold(torch, flush, ctx, call, plain, compare, bound, info):
-    """One kernel at one shape: its result against the plain version's,
-    both timed, and the bound of the work. Returns the result row."""
-    got, want = call(), plain()
+def _hold(torch, flush, ctx, call, plain, compare, bound, info, *,
+          got=None, reps=REPS, library=None):
+    """One kernel at one shape: its result (``got``, where the main path
+    already made it) against the plain version's, both timed, the bound
+    of the work and (``library``) one PyTorch call of the same function.
+    Returns the result row."""
+    if got is None:
+        got = call()
+    want = plain()
     _sync(torch)
     err = compare(got, want, ctx)
-    ms = _time_ms(torch, call, flush)
+    ms = _time_ms(torch, call, flush, reps)
     plain_ms = _time_ms(torch, plain, flush, reps=5)
+    lib_ms = _time_ms(torch, library, flush, reps) if library else None
     nbytes, bound_ms, bound_by = bound(got)
+    lib = f", library {lib_ms * 1e3:.1f} us" if library else ""
     log(f"kernel {ctx}: {', '.join(f'{k} {v}' for k, v in info.items())}, "
-        f"{ms * 1e3:.1f} us (median of {REPS}), plain "
-        f"{plain_ms * 1e3:.1f} us, {nbytes} B moved, bound "
+        f"{ms * 1e3:.1f} us (median of {reps}), plain "
+        f"{plain_ms * 1e3:.1f} us{lib}, {nbytes} B moved, bound "
         f"{bound_ms * 1e3:.1f} us ({bound_by}), "
         f"{100 * bound_ms / ms:.1f}% of bound, max|err| {err:.3g}")
     return dict(info, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes)
+                library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
+                bytes=nbytes)
+
+
+def _row(name, source, replaces, launches, results, main, **extra):
+    """A kernel's entry of the JSON line: its main shape's numbers and
+    every shape's times."""
+    m = results[main]
+    return {
+        "name": name, "route": "cuda",
+        "source": f"src/repro_torch/kernels/csrc/{source}",
+        "replaces": replaces, "launches": launches,
+        "max_abs_err": max(r["max_abs_err"] for r in results.values()),
+        "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+        "bound_by": m["bound_by"], "library_ms": m["library_ms"],
+        "rows": m["rows"], **extra,
+        "shapes": {k: {kk: v[kk] for kk in ("rows", "ms", "plain_ms",
+                                            "library_ms", "bound_ms")}
+                   for k, v in results.items()},
+    }
 
 
 def _table_row(kernel, launches, results, main, **extra):
-    """The kernel's entry of the JSON line: its main-path shape's numbers
-    and every shape's times."""
-    m = results[main]
-    return {
-        "name": KERNELS[kernel][0], "route": "cuda",
-        "source": f"src/repro_torch/kernels/csrc/{KERNELS[kernel][1]}",
-        "replaces": KERNELS[kernel][2],
-        "launches": launches.get(LAUNCH_NAME[kernel], 0),
-        "max_abs_err": max(r["max_abs_err"] for r in results.values()),
-        "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
-        "bound_by": m["bound_by"], "library_ms": None,
-        "rows": m["rows"], "capacity": m["capacity"], **extra,
-        "shapes": {k: {kk: v[kk] for kk in ("rows", "ms", "plain_ms",
-                                            "bound_ms")}
-                   for k, v in results.items()},
-    }
+    """The entry of a query kernel: its main-path shape's numbers."""
+    extra = {"capacity": results[main]["capacity"], "library_ms": None,
+             **extra}
+    return _row(*KERNELS[kernel], launches.get(LAUNCH_NAME[kernel], 0),
+                results, main, **extra)
 
 
 def scan_kernel_phase(torch, dev, state, launches, flush):
@@ -793,7 +838,7 @@ def bloom_kernel_phase(torch, dev, state, launches, flush):
     return _table_row(kind, launches, results, "main", bits=f["bits"])
 
 
-# -- the sort kernels -----------------------------------------------------------
+# -- the sort kernels ---------------------------------------------------------
 
 def _same(got, want, ctx, exact=True):
     """Lane for lane: integers, masks and (``exact``) floats bit for bit;
@@ -1001,6 +1046,329 @@ def sort_kernel_phase(torch, dev, state, launches, flush):
     rows.append(_table_row("topk", launches, tk_results, "main"))
     return rows
 
+
+# -- the kernels no query reaches ---------------------------------------------
+
+def _attn_pairs(S, causal, window):
+    """(query, key) pairs a head's attention needs: key <= query under
+    ``causal``, key > query - window under ``window``."""
+    import numpy as np
+    i = np.arange(S, dtype=np.int64)
+    lo = np.maximum(0, i - window + 1) if window else np.zeros_like(i)
+    hi = i + 1 if causal else np.full_like(i, S)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def _ssd_flops(b, S, H, P, N, Q):
+    """Operations the SSD scan needs: per chunk of L real tokens, C·Bᵀ
+    on its L(L+1)/2 causal pairs once per sequence (B and C are shared by
+    the heads); per head the weighted pairs times x, the carried state
+    into the outputs (not in the first chunk) and the state update (not
+    after the last)."""
+    flops, nc = 0, -(-S // Q)
+    for c in range(nc):
+        L = min(Q, S - c * Q)
+        pairs = L * (L + 1) // 2
+        flops += b * 2 * pairs * N
+        flops += b * H * (2 * pairs * P + (c > 0) * 2 * L * N * P
+                          + (c < nc - 1) * 2 * L * N * P)
+    return flops
+
+
+def _close(tol):
+    def compare(got, want, ctx):
+        import numpy as np
+        g, w = got.float().cpu().numpy(), want.float().cpu().numpy()
+        if g.shape != w.shape:
+            raise AssertionError(f"{ctx}: shape {g.shape} != {w.shape}")
+        np.testing.assert_allclose(g, w, **tol, err_msg=ctx)
+        return float(np.max(np.abs(g - w), initial=0.0))
+    return compare
+
+
+def _close_bf16(exact):
+    """bf16 attention at full width: the kernel's bf16 output against the
+    plain version's float32 result on the same (bf16-valued) inputs,
+    ``exact()``, within half a bf16 ulp (2^-8 of the value) plus 2e-5 of
+    float32 summation slack; the reference's 2e-2 is as large as the
+    outputs of late rows at these lengths and would pass a dropped key
+    tile. Returns max |kernel - plain| against the bf16 plain output."""
+    def compare(got, want, ctx):
+        import numpy as np
+        err = _close(dict(atol=2e-2, rtol=2e-2))(got, want, ctx)
+        g, x = got.float().cpu().numpy(), exact().cpu().numpy()
+        tight = float(np.max(np.abs(g - x)))
+        log(f"{ctx}: max|kernel - float32 plain| {tight:.3g}, "
+            f"max|kernel - bf16 plain| {err:.3g}")
+        np.testing.assert_allclose(g, x, atol=2e-5, rtol=2.0 ** -8,
+                                   err_msg=f"{ctx} against float32")
+        return err
+    return compare
+
+
+def _close_to_max(got, want, ctx):
+    """The reference's SSD tolerance: max |err| / max |ref| < 5e-5."""
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max()) + 1e-9
+    log(f"{ctx}: max|err| / max|ref| {err / scale:.3g}")
+    if got.shape != want.shape or not err / scale < 5e-5:
+        raise AssertionError(f"{ctx}: max|err| {err:.3g} / max|ref| "
+                             f"{scale:.3g} >= 5e-5")
+    return err
+
+
+def _close_q6(got, want, ctx):
+    """Revenue at rtol 1e-4, the count exactly."""
+    g, w = got.cpu().tolist(), want.cpu().tolist()
+    if g[1] != w[1] or not abs(g[0] - w[0]) <= 1e-4 * abs(w[0]):
+        raise AssertionError(f"{ctx}: {g} != {w}")
+    return abs(g[0] - w[0])
+
+
+def _case(kernel, label, call, plain, compare, bound, info, *,
+          library=None, reps=REPS):
+    return dict(kernel=kernel, label=label, call=call, plain=plain,
+                compare=compare, bound=bound, info=info, library=library,
+                reps=reps)
+
+
+def _standalone_cases(torch, dev, state):
+    """The shapes the slice drives (:func:`_case` each): inputs made from
+    a numpy seed at the widths of the configured models, and the SF 1
+    lineitem columns."""
+    import numpy as np
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.data.tpch import date_to_int
+    from repro_torch.kernels import filter_agg as fa
+    from repro_torch.kernels import flash_attention as fl
+    from repro_torch.kernels import groupby_onehot as go
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.models.config import SHAPES
+
+    rng = np.random.default_rng(0)
+    cases = []
+
+    def normal(shape, dtype=torch.float32, scale=1.0):
+        a = rng.standard_normal(shape, dtype=np.float32) * np.float32(scale)
+        return torch.from_numpy(a).to(dev, dtype)
+
+    # flash attention: (label, heads, kv heads, head dim, S, causal,
+    # window, dtype); granite-3-2b and hymba-1.5b widths at train_4k's
+    # and prefill_32k's lengths, then the edge cases
+    granite, hymba = get_config("granite-3-2b"), get_config("hymba-1.5b")
+    S4k, S32k = SHAPES["train_4k"].seq_len, SHAPES["prefill_32k"].seq_len
+    g = (granite.n_heads, granite.n_kv_heads, granite.head_dim_)
+    flash = [("granite S4096 causal bf16", *g, S4k, True, 0, torch.bfloat16),
+             ("granite S4096 causal f32", *g, S4k, True, 0, torch.float32),
+             ("granite S32768 causal bf16", *g, S32k, True, 0,
+              torch.bfloat16),
+             ("hymba S4096 window bf16", hymba.n_heads, hymba.n_kv_heads,
+              hymba.head_dim_, S4k, True, hymba.sliding_window,
+              torch.bfloat16),
+             ("ragged S200 bf16", *g, 200, True, 0, torch.bfloat16),
+             ("group 1 bf16", g[1], g[1], g[2], 1024, True, 0,
+              torch.bfloat16),
+             ("non-causal bf16", *g, 1024, False, 0, torch.bfloat16)]
+    for label, H, Hkv, hd, S, causal, window, dtype in flash:
+        q, k, v = normal((H, S, hd), dtype), normal((Hkv, S, hd), dtype), \
+            normal((Hkv, S, hd), dtype)
+        if dtype == torch.float32:
+            compare = _close(dict(atol=2e-5, rtol=2e-5))
+        else:
+            compare = _close_bf16(
+                lambda q=q, k=k, v=v, c=causal, w=window:
+                    fl.flash_attention_plain(q.float(), k.float(),
+                                             v.float(), causal=c, window=w))
+        pairs = H * _attn_pairs(S, causal, window)
+        nbytes = (2 * H + 2 * Hkv) * S * hd * q.element_size()
+        peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
+        # SDPA: a yardstick, never in the port; a window as a boolean band
+        # mask, built here and not timed
+        mask = None
+        if window:
+            i = torch.arange(S, device=dev)
+            mask = (i[None, :] <= i[:, None]) \
+                & (i[None, :] > i[:, None] - window)
+
+        def library(q=q, k=k, v=v, c=causal, mask=mask):
+            return F.scaled_dot_product_attention(
+                q[None], k[None], v[None], attn_mask=mask,
+                is_causal=c and mask is None, enable_gqa=True)
+        cases.append(_case(
+            "flash_attention", label,
+            lambda q=q, k=k, v=v, c=causal, w=window: ops.flash_attention(
+                q, k, v, causal=c, window=w),
+            lambda q=q, k=k, v=v, c=causal, w=window:
+                fl.flash_attention_plain(q, k, v, causal=c, window=w),
+            compare,
+            lambda got, nb=nbytes, f=4 * hd * pairs, p=peak:
+                _bound(nb, f, p),
+            dict(rows=S, q=[H, S, hd], kv=[Hkv, S, hd], causal=causal,
+                 window=window, dtype=str(dtype).split(".")[1]),
+            library=library, reps=10 if S >= S32k else REPS))
+
+    # the SSD scan: mamba2-130m over 8 sequences of train_4k, hymba-1.5b's
+    # mixer over one, and a ragged length, with the reference's test draw
+    # (dt near 0.8, A near -1: nothing past ~20 tokens back counts); then
+    # mamba2-130m's own dynamics (dt log-uniform in [1e-3, 0.1] as its
+    # dt_bias gives, A in [-16, -1]), whose memory of tens to thousands
+    # of tokens reaches the off-diagonal tiles and the carried state
+    mamba = get_config("mamba2-130m")
+    m = (mamba.n_ssm_heads, mamba.ssm_head_dim, mamba.ssm_state,
+         mamba.ssm_chunk)
+    ssds = [("mamba2 b8 S4096", 8, S4k, *m, False),
+            ("hymba b1 S4096", 1, S4k, hymba.n_ssm_heads,
+             hymba.ssm_head_dim, hymba.ssm_state, hymba.ssm_chunk, False),
+            ("ragged S1000", 1, 1000, *m, False),
+            ("mamba2 b8 S4096 mamba2 dt/A", 8, S4k, *m, True)]
+    for label, b, S, H, P, N, Q, long_memory in ssds:
+        x = normal((b, S, H, P), scale=0.5)
+        if long_memory:
+            dt = torch.from_numpy(np.exp(rng.uniform(
+                np.log(1e-3), np.log(0.1), (b, S, H))).astype(
+                    np.float32)).to(dev)
+            A_log = torch.from_numpy(np.log(rng.uniform(1.0, 16.0, H))
+                                     .astype(np.float32)).to(dev)
+        else:
+            dt = F.softplus(normal((b, S, H)))
+            A_log = normal((H,), scale=0.3)
+        B, C = normal((b, S, N), scale=0.5), normal((b, S, N), scale=0.5)
+        nbytes = 4 * (2 * b * S * H * P + b * S * H + H + 2 * b * S * N)
+        cases.append(_case(
+            "ssd_scan", label,
+            lambda a=(x, dt, A_log, B, C), Q=Q: ops.ssd_scan(*a, chunk=Q),
+            lambda a=(x, dt, A_log, B, C), Q=Q: ssd.ssd_scan_plain(
+                *a, chunk=Q),
+            _close_to_max,
+            lambda got, nb=nbytes, f=_ssd_flops(b, S, H, P, N, Q):
+                _bound(nb, f, FP32_FLOPS),
+            dict(rows=b * S, x=[b, S, H, P], N=N, chunk=Q,
+                 draw="mamba2 dt/A" if long_memory else "unit")))
+
+    # TPC-H Q6 over the SF 1 lineitem columns, at the reference's types
+    li = state["lineitem"]
+    n = len(li["l_orderkey"])
+    ship = torch.from_numpy(li["l_shipdate"].astype(np.int32)).to(dev)
+    disc, qty, price = (torch.from_numpy(li[c].astype(np.float32)).to(dev)
+                        for c in ("l_discount", "l_quantity",
+                                  "l_extendedprice"))
+    q6 = dict(date_lo=date_to_int("1994-01-01"),
+              date_hi=date_to_int("1995-01-01"), disc_lo=0.05,
+              disc_hi=0.07, qty_hi=24.0)
+    cols = (ship, disc, qty, price)
+    cases.append(_case(
+        "filter_agg", "Q6 SF1 lineitem",
+        lambda: ops.filter_agg(*cols, **q6),
+        lambda: fa.filter_agg_plain(*cols, **q6), _close_q6,
+        lambda got: _bound(16 * n + 8, 7 * n, FP32_FLOPS),
+        dict(rows=n, **q6)))
+
+    # grouped sums: Q1's group id (returnflag × linestatus, K = 6) and a
+    # K = 120 id, over (quantity, price, discount, tax, 1)
+    vals = torch.from_numpy(np.stack(
+        [li[c].astype(np.float32) for c in ("l_quantity", "l_extendedprice",
+                                            "l_discount", "l_tax")]
+        + [np.ones(n, np.float32)], axis=1)).to(dev)
+    q1_gid = (li["l_returnflag"] * 2 + li["l_linestatus"]).astype(np.int32)
+    A = vals.shape[1]
+    for label, gid_np, K in (("Q1 K6", q1_gid, 6),
+                             ("K120", (li["l_partkey"] % 120).astype(
+                                 np.int32), 120)):
+        gid = torch.from_numpy(gid_np).to(dev)
+
+        def library(gid=gid, K=K):   # every id is in range here
+            return torch.zeros((K, A), dtype=torch.float32,
+                               device=dev).index_add_(0, gid, vals)
+        cases.append(_case(
+            "groupby_onehot", label,
+            lambda gid=gid, K=K: ops.groupby_onehot(gid, vals, n_groups=K),
+            lambda gid=gid, K=K: go.groupby_onehot_plain(gid, vals,
+                                                         n_groups=K),
+            _close(dict(atol=1e-3, rtol=1e-4)),
+            lambda got, K=K: _bound(4 * n + 4 * n * A + 4 * K * A, n * A,
+                                    FP32_FLOPS),
+            dict(rows=n, K=K, A=A), library=library))
+    return cases
+
+
+def standalone_kernel_phase(torch, ext, dev, state, flush):
+    """The path of the kernels no query reaches: each wrapper of
+    ``repro_torch.kernels.ops`` driven once at every shape of
+    :func:`_standalone_cases`, with the launch counts reset just before
+    and read just after; then each result held against the plain
+    version and timed. Also checks Q6's revenue and match count against
+    the query phase and numpy, Q1's group counts against numpy, and
+    group ids out of range."""
+    import numpy as np
+    from repro_torch.data.tpch import date_to_int
+    from repro_torch.kernels import groupby_onehot as go
+    from repro_torch.kernels import ops
+
+    # the plain versions' float32 products in full float32 (no TF32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cases = _standalone_cases(torch, dev, state)
+    ext.reset_launches()                     # the slice's path starts here
+    outs = [case["call"]() for case in cases]
+    _sync(torch)
+    launches = ext.launches()                # ... and ends here
+    log(f"launches on the standalone kernels' path: {launches}")
+    for kernel, (_, _, counter) in STANDALONE.items():
+        if launches.get(counter, 0) < 1:
+            raise AssertionError(f"{kernel}: no launch on its path")
+    by_label = {c["label"]: (c, o) for c, o in zip(cases, outs)}
+
+    # Q6: the query phase's revenue, and the count of its predicate
+    li = state["lineitem"]
+    case, got = by_label["Q6 SF1 lineitem"]
+    b = case["info"]
+    m = ((li["l_shipdate"] >= b["date_lo"])
+         & (li["l_shipdate"] < b["date_hi"])
+         & (li["l_discount"] >= b["disc_lo"])
+         & (li["l_discount"] <= b["disc_hi"])
+         & (li["l_quantity"] < b["qty_hi"]))
+    rev, cnt = got.cpu().tolist()
+    want_rev = float(np.asarray(state["q6_rows"]["revenue"])[0])
+    log(f"kernel filter_agg Q6: revenue {rev!r} (query Q6 {want_rev!r}), "
+        f"count {cnt!r} (Q6's predicate on the float64 columns "
+        f"{int(m.sum())})")
+    if cnt != int(m.sum()) or not abs(rev - want_rev) <= 1e-4 * want_rev:
+        raise AssertionError("filter_agg disagrees with Q6")
+    # Q1's group counts (the ones column) against numpy; Q1's filter as
+    # gid -1, and gid = K, reach no group
+    q1_gid = li["l_returnflag"] * 2 + li["l_linestatus"]
+    _, got = by_label["Q1 K6"]
+    if not np.array_equal(got[:, -1].cpu().numpy(),
+                          np.bincount(q1_gid, minlength=6)):
+        raise AssertionError(f"groupby_onehot Q1 counts {got[:, -1]}")
+    kept = li["l_shipdate"] <= date_to_int("1998-09-02")
+    filtered = torch.from_numpy(np.where(kept, q1_gid, -1).astype(
+        np.int32)).to(dev)
+    ones = torch.ones((len(filtered), 1), device=dev)
+    for ids in (filtered, torch.full_like(filtered, 6)):
+        got = ops.groupby_onehot(ids, ones, n_groups=6)
+        _close(dict(atol=0, rtol=0))(
+            got, go.groupby_onehot_plain(ids, ones, n_groups=6),
+            "groupby_onehot out-of-range ids")
+    if int(got.sum()) != 0:
+        raise AssertionError("groupby_onehot: gid = K reached a group")
+    log("kernel groupby_onehot: Q1 counts = numpy; ids -1 and K = plain")
+
+    results = {k: {} for k in STANDALONE}
+    for case, got in zip(cases, outs):
+        results[case["kernel"]][case["label"]] = _hold(
+            torch, flush, f"{case['kernel']} {case['label']}",
+            case["call"], case["plain"], case["compare"], case["bound"],
+            case["info"], got=got, reps=case["reps"],
+            library=case["library"])
+    main = {"flash_attention": "granite S4096 causal bf16",
+            "ssd_scan": "mamba2 b8 S4096", "filter_agg": "Q6 SF1 lineitem",
+            "groupby_onehot": "Q1 K6"}
+    return [_row(kernel, source, replaces, launches.get(counter, 0),
+                 results[kernel], main[kernel])
+            for kernel, (source, replaces, counter) in STANDALONE.items()]
 
 if __name__ == "__main__":
     sys.exit(main())

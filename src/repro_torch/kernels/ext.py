@@ -15,7 +15,14 @@ own name where it launches its kernel and nowhere else, so a run can
 show that its main path went through the kernels (``groupby.cu`` serves
 two wrappers, ``groupby`` and ``groupby_minmax``; the join and Bloom
 wrappers count as ``join_probe_agg`` and ``bloom_filter``, the sort
-kernels as ``sort_agg`` and ``topk``).
+kernels as ``sort_agg`` and ``topk``; the fixed-layout benchmark kernels
+as ``filter_agg_q6`` and ``groupby_onehot``, the model kernels as
+``flash_attention`` and ``ssd_scan``).
+
+Every source builds with ``-fmad=false`` (the query kernels' multiplies
+and adds round apart, as the reference's unfused arithmetic does) except
+those in ``FMA_SOURCES``: the attention and SSD kernels contract
+multiply-adds, as they are held to a tolerance, not to bit parity.
 """
 
 from __future__ import annotations
@@ -46,21 +53,27 @@ SOURCES = {
     "bloom": "bloom.cu",
     "sort_agg": "sort_agg.cu",
     "topk": "topk.cu",
+    "filter_agg_q6": "filter_agg_q6.cu",
+    "groupby_onehot": "groupby_onehot.cu",
+    "flash_attention": "flash_attention.cu",
+    "ssd_scan": "ssd_scan.cu",
 }
 HEADERS = ("scan_agg.cuh", "sortnet.cuh", "cuda_error.cuh")
 NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
+FMA_SOURCES = ("flash_attention", "ssd_scan")
 
-_P, _I, _L, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, \
-    ctypes.c_uint
+_P, _I, _L, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, \
+    ctypes.c_uint, ctypes.c_float
 # C signature of each library's launch function: columns, mask and rows,
 # program, [K,] partials and output, grid, stream (the join adds the
 # gathered-column mask, the probe key and the sorted build keys; the
 # Bloom probe takes the key, mask, words, bits, k and its output; the
 # sort kernels take the mask and rows, key columns, their scratch lanes
 # and positions and the tile, then the sort-aggregate's values, scan
-# scratch and outputs, or the top-k's columns, limit and mask)
+# scratch and outputs, or the top-k's columns, limit and mask; the
+# fixed-layout and model kernels take their tensors, shapes and scalars)
 _ARGTYPES = {
     "filter_agg": [_P, _P, _I, _P, _L, _P, _P, _P, _P, _I, _P, _P, _I, _I,
                    _P],
@@ -73,6 +86,12 @@ _ARGTYPES = {
                  _P, _P],
     "topk": [_P, _L, _P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _I, _L, _P,
              _P],
+    "filter_agg_q6": [_P, _P, _P, _P, _L, _I, _I, _F, _F, _F, _P, _P, _I,
+                      _P],
+    "groupby_onehot": [_P, _P, _L, _I, _I, _P, _P, _I, _P],
+    "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
+                        _P],
+    "ssd_scan": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -107,11 +126,19 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
+def nvcc_flags(name: str) -> list[str]:
+    """The flags of source ``name``: ``NVCC_FLAGS``, without
+    ``-fmad=false`` for the ``FMA_SOURCES``."""
+    if name in FMA_SOURCES:
+        return [f for f in NVCC_FLAGS if f != "-fmad=false"]
+    return list(NVCC_FLAGS)
+
+
 def _lib_path(name: str) -> Path:
     h = hashlib.sha1()
     for f in (SOURCES[name],) + HEADERS:
         h.update((_CSRC / f).read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(nvcc_flags(name)).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
@@ -139,7 +166,8 @@ def _build_missing() -> dict[str, float]:
     for name, out in todo.items():
         tmp = out.with_suffix(f".tmp{os.getpid()}")
         log = open(BUILD_DIR / f"{name}.log", "w")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / SOURCES[name])]
+        cmd = [nvcc, *nvcc_flags(name), "-o", str(tmp),
+               str(_CSRC / SOURCES[name])]
         procs[name] = (subprocess.Popen(cmd, stdout=log,
                                         stderr=subprocess.STDOUT),
                        log, tmp, out)
@@ -230,10 +258,14 @@ def int_array(values) -> ctypes.c_void_p:
     return ctypes.cast(arr, ctypes.c_void_p)
 
 
+def sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def grid_ctas(tiling, n_rows: int, device) -> int:
     """CTAs to launch: the tiling's CTAs per SM times the SMs this card
     has, and no more than there are row blocks."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    sms = sm_count(device)
     per_sm = max(1, tiling.ctas // H100_SXM["sm_count"])
     blocks = -(-max(n_rows, 1) // tiling.block_rows)
     return max(1, min(sms * per_sm, blocks))

@@ -1,5 +1,5 @@
 """Fused filter + ungrouped aggregate — the port of
-``repro.kernels.filter_agg.fused_filter_agg``.
+``repro.kernels.filter_agg``'s two kernels.
 
 The hot loop of a scan-heavy query worker (TPC-H Q6): evaluate the
 predicate over the column block and fold the aggregates in one pass, with
@@ -11,6 +11,11 @@ kernel is held against on the card.
 
 Both return the (A,) float64 accumulator: sums and counts start at 0,
 min at +inf and max at -inf (``common.NEUTRAL``).
+
+:func:`filter_agg_cuda` / :func:`filter_agg_plain` are the fixed-layout
+benchmark kernel (``filter_agg``): TPC-H Q6's predicate over an int32
+ship date and float32 discount, quantity and price, returning the (2,)
+float32 ``[revenue, count]`` (``csrc/filter_agg_q6.cu``).
 """
 
 from __future__ import annotations
@@ -24,6 +29,10 @@ from repro_torch.kernels.common import ACC_DTYPE, NEUTRAL
 from repro_torch.kernels.program import Program, eval_slot, for_columns
 
 NAME = "filter_agg"
+NAME_Q6 = "filter_agg_q6"
+BLOCK_ROWS = 2048        # the reference's tile; the CUDA kernel picks its own
+THREADS = 256
+CTAS_PER_SM = 4
 
 
 def _surviving(columns: dict, mask, prog: Program):
@@ -80,4 +89,64 @@ def fused_filter_agg_cuda(columns: dict, mask, *, program: Program,
     ext.check(lib, rc, NAME)
     ext.count_launch(NAME)
     del cols
+    return out
+
+
+# -- the fixed-layout Q6 kernel (``filter_agg``) ------------------------------
+
+def filter_agg_plain(shipdate, discount, quantity, extendedprice, *,
+                     date_lo: int, date_hi: int, disc_lo: float,
+                     disc_hi: float, qty_hi: float,
+                     block: int = BLOCK_ROWS) -> torch.Tensor:
+    """Columns are 1-D of equal length n; the ship date is taken as
+    int32, the others as float32, as the reference casts them. The float
+    bounds are rounded to float32 (JAX's weakly typed Python floats).
+    Returns (2,) float32: [sum(price * discount), match count]."""
+    del block                  # a tile size of the reference only
+    ship = shipdate.to(torch.int32)
+    disc = discount.to(torch.float32)
+    qty = quantity.to(torch.float32)
+
+    def f32(v):
+        return torch.tensor(v, dtype=torch.float32, device=disc.device)
+    m = ((ship >= int(date_lo)) & (ship < int(date_hi))
+         & (disc >= f32(disc_lo)) & (disc <= f32(disc_hi))
+         & (qty < f32(qty_hi)))
+    val = torch.where(m, extendedprice.to(torch.float32) * disc, 0.0)
+    return torch.stack([val.sum(), m.sum(dtype=torch.float32)])
+
+
+def filter_agg_cuda(shipdate, discount, quantity, extendedprice, *,
+                    date_lo: int, date_hi: int, disc_lo: float,
+                    disc_hi: float, qty_hi: float,
+                    block: int = BLOCK_ROWS) -> torch.Tensor:
+    """The kernel of :func:`filter_agg_plain`. Takes contiguous 1-D CUDA
+    tensors, int32 ship date and float32 others, and raises on anything
+    else; ``block`` is accepted for the reference's signature."""
+    del block
+    n = int(shipdate.shape[0])
+    for name, t, dtype in (("shipdate", shipdate, torch.int32),
+                           ("discount", discount, torch.float32),
+                           ("quantity", quantity, torch.float32),
+                           ("extendedprice", extendedprice, torch.float32)):
+        if t.dtype != dtype or t.dim() != 1 or t.shape[0] != n \
+                or not t.is_contiguous() or t.device != shipdate.device:
+            raise ValueError(f"{name}: want a contiguous ({n},) {dtype} "
+                             f"tensor on {shipdate.device}, got "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
+    lo, hi = int(date_lo), int(date_hi)
+    if not -2**31 <= lo <= hi < 2**31:
+        raise ValueError(f"date bounds {lo}, {hi}: want int32")
+    lib = ext.library(NAME_Q6)
+    dev = shipdate.device
+    ctas = max(1, min(ext.sm_count(dev) * CTAS_PER_SM, -(-n // THREADS)))
+    partials = torch.empty((ctas, 2), dtype=torch.float32, device=dev)
+    out = torch.empty((2,), dtype=torch.float32, device=dev)
+    rc = lib.filter_agg_q6_launch(
+        shipdate.data_ptr(), discount.data_ptr(), quantity.data_ptr(),
+        extendedprice.data_ptr(), n, lo, hi, float(disc_lo),
+        float(disc_hi), float(qty_hi), partials.data_ptr(), out.data_ptr(),
+        ctas, torch.cuda.current_stream(dev).cuda_stream)
+    ext.check(lib, rc, NAME_Q6)
+    ext.count_launch(NAME_Q6)
     return out

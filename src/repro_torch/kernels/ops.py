@@ -1,13 +1,14 @@
-"""Public wrappers of the fused query kernels: the scan-aggregate,
-join-probe and Bloom-probe kernels, and the sort-aggregate and top-k
-kernels over the sorting network of ``csrc/sortnet.cuh``.
+"""Public wrappers of the hand-written kernels: the fused query kernels
+(scan-aggregate, join-probe and Bloom-probe, and the sort-aggregate and
+top-k kernels over the sorting network of ``csrc/sortnet.cuh``), the
+fixed-layout benchmark kernels (``filter_agg``, TPC-H Q6; ``groupby_onehot``)
+and the model kernels (``flash_attention``, ``ssd_scan``); these four
+keep the reference's signatures (``repro.kernels.ops``).
 
 Each wrapper dispatches on the device of its inputs: CUDA tensors launch
 the hand-written kernel, CPU tensors run its plain torch version. There
 is no fallback between the two: a CUDA tensor that the kernel cannot
 take, a failed build or a failed launch raises.
-
-The reference's benchmark and model kernels have no wrapper here yet.
 """
 
 from __future__ import annotations
@@ -16,10 +17,12 @@ import torch
 
 from repro_torch.kernels import bloom as _bl
 from repro_torch.kernels import filter_agg as _fa
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import groupby_onehot as _go
 from repro_torch.kernels import join_probe as _jp
 from repro_torch.kernels import segmented_minmax as _smm
 from repro_torch.kernels import sort_agg as _sa
+from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.kernels import topk as _tk
 from repro_torch.kernels.program import Program
 
@@ -30,6 +33,36 @@ def _on_cuda(mask: torch.Tensor) -> bool:
     if mask.device.type == "cpu":
         return False
     raise ValueError(f"no kernel for device {mask.device}")
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    block_q: int = _flash.DEFAULT_BLOCK_Q,
+                    block_k: int = _flash.DEFAULT_BLOCK_K):
+    fn = _flash.flash_attention_cuda if _on_cuda(q) \
+        else _flash.flash_attention_plain
+    return fn(q, k, v, causal=causal, window=window, block_q=block_q,
+              block_k=block_k)
+
+
+def ssd_scan(x, dt, A_log, B, C, *, chunk: int = 128):
+    fn = _ssd.ssd_scan_cuda if _on_cuda(x) else _ssd.ssd_scan_plain
+    return fn(x, dt, A_log, B, C, chunk=chunk)
+
+
+def filter_agg(shipdate, discount, quantity, extendedprice, *,
+               date_lo: int, date_hi: int, disc_lo: float, disc_hi: float,
+               qty_hi: float, block: int = _fa.BLOCK_ROWS):
+    fn = _fa.filter_agg_cuda if _on_cuda(shipdate) else _fa.filter_agg_plain
+    return fn(shipdate, discount, quantity, extendedprice, date_lo=date_lo,
+              date_hi=date_hi, disc_lo=disc_lo, disc_hi=disc_hi,
+              qty_hi=qty_hi, block=block)
+
+
+def groupby_onehot(group_ids, values, *, n_groups: int,
+                   block: int = _go.BLOCK_ROWS):
+    fn = _go.groupby_onehot_cuda if _on_cuda(group_ids) \
+        else _go.groupby_onehot_plain
+    return fn(group_ids, values, n_groups=n_groups, block=block)
 
 
 def fused_filter_agg(columns: dict, mask, *, program: Program, tiling):

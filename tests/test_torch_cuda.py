@@ -1,7 +1,9 @@
 """The port on the card: each CUDA kernel against its plain version, and
 the slices end to end on the default device (Q6, Q1, min/max; Q12, Q14,
 Q19 and the selective semi-join; the GROUP BY l_orderkey and Q3 of the
-sort path).
+sort path); and the four kernels no query reaches (the fixed-layout Q6
+and grouped sums, flash attention, the SSD scan), each against its
+plain version, with inputs its wrapper must refuse.
 
 Every test here needs an NVIDIA GPU and nvcc and skips without them. The
 file imports neither ``jax`` nor ``repro``, so it runs on a machine
@@ -358,3 +360,146 @@ def test_sort_query_on_the_card_equals_the_oracle(session, query):
         np.testing.assert_allclose(np.asarray(got[k], np.float64)[order_g],
                                    np.asarray(want[k], np.float64)[order_w],
                                    **TOL)
+
+
+# -- the kernels no query reaches: Q6 and grouped sums at fixed layout, the
+# model kernels (flash attention, the SSD scan)
+
+@pytest.fixture(scope="module")
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with nvcc: the CUDA kernels have "
+                    "no CPU mode")
+    return torch.device("cuda", 0)
+
+
+def _launched(name, fn):
+    before = ext.launches().get(name, 0)
+    out = fn()
+    torch.cuda.synchronize()
+    assert ext.launches().get(name, 0) == before + 1
+    return out
+
+
+@pytest.mark.parametrize("n", [1000, 1 << 20])
+def test_filter_agg_q6_kernel_matches_plain(card, n):
+    rng = np.random.default_rng(n)
+    ship = torch.from_numpy(rng.integers(8000, 10000, n).astype(
+        np.int32)).to(card)
+    disc = torch.from_numpy((rng.integers(0, 11, n) / 100).astype(
+        np.float32)).to(card)
+    qty = torch.from_numpy(rng.integers(1, 51, n).astype(np.float32)).to(
+        card)
+    price = torch.from_numpy(rng.random(n).astype(np.float32) * 1e4).to(card)
+    bounds = dict(date_lo=8500, date_hi=9500, disc_lo=0.05, disc_hi=0.07,
+                  qty_hi=24.0)
+    got = _launched("filter_agg_q6", lambda: ops.filter_agg(
+        ship, disc, qty, price, **bounds))
+    want = fa.filter_agg_plain(ship, disc, qty, price, **bounds)
+    assert got.dtype == torch.float32 and got.shape == (2,)
+    assert float(got[1]) == float(want[1]) > 0
+    np.testing.assert_allclose(float(got[0]), float(want[0]), rtol=1e-4)
+
+
+@pytest.mark.parametrize("n,K,A", [(5000, 6, 5), (1 << 20, 120, 5)])
+def test_groupby_onehot_kernel_matches_plain(card, n, K, A):
+    rng = np.random.default_rng(n + K)
+    gid = rng.integers(-1, K + 1, n).astype(np.int32)   # -1 and K: no group
+    gid = torch.from_numpy(gid).to(card)
+    vals = torch.from_numpy(rng.standard_normal((n, A)).astype(
+        np.float32)).to(card)
+    got = _launched("groupby_onehot", lambda: ops.groupby_onehot(
+        gid, vals, n_groups=K))
+    want = go.groupby_onehot_plain(gid, vals, n_groups=K)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               atol=1e-3, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,hd,heads,kv_heads,causal,window", [
+    (200, 64, 8, 2, True, 0), (256, 128, 2, 2, False, 0),
+    (64, 64, 4, 1, True, 0), (300, 64, 4, 4, True, 100),
+])
+def test_flash_attention_kernel_matches_plain(card, dtype, S, hd, heads,
+                                              kv_heads, causal, window):
+    from repro_torch.kernels import flash_attention as fl
+    rng = np.random.default_rng(S + hd)
+    q, k, v = (torch.from_numpy(rng.standard_normal((h, S, hd)).astype(
+        np.float32)).to(card, dtype) for h in (heads, kv_heads, kv_heads))
+    got = _launched("flash_attention", lambda: ops.flash_attention(
+        q, k, v, causal=causal, window=window))
+    want = fl.flash_attention_plain(q, k, v, causal=causal, window=window)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    assert got.dtype == dtype
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), atol=tol,
+                               rtol=tol)
+    if dtype == torch.bfloat16:
+        # the kernel's float32 math rounded once: within half a bf16 ulp
+        # (2^-8 of the value) of the float32 result on the same inputs
+        exact = fl.flash_attention_plain(q.float(), k.float(), v.float(),
+                                         causal=causal, window=window)
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   exact.cpu().numpy(), atol=2e-5,
+                                   rtol=2.0 ** -8)
+
+
+@pytest.mark.parametrize("draw", ["unit", "mamba2"])
+@pytest.mark.parametrize("b,S,H,N,chunk", [(2, 1000, 3, 128, 256),
+                                           (1, 256, 4, 16, 64),
+                                           (1, 100, 2, 32, 256)])
+def test_ssd_scan_kernel_matches_plain(card, b, S, H, N, chunk, draw):
+    """``unit``: the reference's test draw (dt near 0.8, A near -1, a
+    memory of a few tokens); ``mamba2``: mamba2-130m's dynamics (dt
+    log-uniform in [1e-3, 0.1], A in [-16, -1]), whose long memory
+    reaches the off-diagonal tiles and the state carried across chunks."""
+    from repro_torch.kernels import ssd_scan as ssd
+    rng = np.random.default_rng(S + N)
+
+    def f32(a):
+        return torch.from_numpy(a.astype(np.float32)).to(card)
+    x = f32(rng.standard_normal((b, S, H, 64)) * 0.5)
+    if draw == "mamba2":
+        dt = f32(np.exp(rng.uniform(np.log(1e-3), np.log(0.1), (b, S, H))))
+        A_log = f32(np.log(rng.uniform(1.0, 16.0, H)))
+    else:
+        dt = f32(np.log1p(np.exp(rng.standard_normal((b, S, H)))))
+        A_log = f32(rng.standard_normal(H) * 0.3)
+    B = f32(rng.standard_normal((b, S, N)) * 0.5)
+    C = f32(rng.standard_normal((b, S, N)) * 0.5)
+    got = _launched("ssd_scan", lambda: ops.ssd_scan(x, dt, A_log, B, C,
+                                                     chunk=chunk))
+    want = ssd.ssd_scan_plain(x, dt, A_log, B, C, chunk=chunk)
+    err = (got - want).abs().max().item()
+    assert err / (want.abs().max().item() + 1e-9) < 5e-5
+
+
+def test_model_kernel_wrappers_refuse_what_the_kernels_do_not_take(card):
+    n = 64
+    i32 = torch.zeros(n, dtype=torch.int32, device=card)
+    f32 = torch.zeros(n, dtype=torch.float32, device=card)
+    with pytest.raises(ValueError):          # a float64 price column
+        ops.filter_agg(i32, f32, f32, f32.double(), date_lo=0, date_hi=1,
+                       disc_lo=0.0, disc_hi=1.0, qty_hi=1.0)
+    with pytest.raises(ValueError):          # int64 group ids
+        ops.groupby_onehot(i32.long(), f32[:, None], n_groups=4)
+    with pytest.raises(ValueError):          # non-contiguous values
+        ops.groupby_onehot(i32, torch.zeros((2, n), device=card).t(),
+                           n_groups=4)
+    q = torch.zeros((2, 16, 64), device=card)
+    with pytest.raises(ValueError):          # float16
+        ops.flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError):          # non-contiguous k
+        ops.flash_attention(q, q.transpose(0, 1).contiguous().transpose(
+            0, 1), q)
+    with pytest.raises(ValueError):          # head dim 32
+        ops.flash_attention(q[..., :32].contiguous(),
+                            q[..., :32].contiguous(),
+                            q[..., :32].contiguous())
+    x = torch.zeros((1, 16, 2, 64), device=card)
+    dt = torch.zeros((1, 16, 2), device=card)
+    bc = torch.zeros((1, 16, 16), device=card)
+    with pytest.raises(ValueError):          # float64 x
+        ops.ssd_scan(x.double(), dt, dt[0, 0], bc, bc)
+    with pytest.raises(ValueError):          # P = 32
+        ops.ssd_scan(x[..., :32].contiguous(), dt, dt[0, 0], bc, bc)
