@@ -3,13 +3,15 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
-(ten libraries, one nvcc each, in parallel), then drives the port's
-main path at SF 1 through ``repro_torch.api.connect()`` (device: the
-card): TPC-H Q6, Q1 and a grouped min/max query (the scan-aggregate
-kernels); Q12, Q14 and Q19, broadcast joins whose join stage runs the
-join-probe kernel; the selective repartition join of the semi-join
-tests, grouped by a dictionary-coded column, whose probe scan runs the
-Bloom-probe kernel and whose join stage runs the join-probe kernel, and
+(ten libraries, one nvcc each, in parallel; it fails unless the bf16
+attention library's SASS holds HGMMA, tensor-core, instructions), then
+drives the port's main path at SF 1 through
+``repro_torch.api.connect()`` (device: the card): TPC-H Q6, Q1 and a
+grouped min/max query (the scan-aggregate kernels); Q12, Q14 and Q19,
+broadcast joins whose join stage runs the join-probe kernel; the
+selective repartition join of the semi-join tests, grouped by a
+dictionary-coded column, whose probe scan runs the Bloom-probe kernel
+and whose join stage runs the join-probe kernel, and
 the same join grouped by ``l_orderkey`` (Bloom kernel; its later stages
 have no kernel arm in either package); Q12 again as a repartition join
 (the join kernel over two exchange leaves); a GROUP BY ``l_orderkey``
@@ -20,14 +22,15 @@ that no stage of these queries waits for a kernel of a later slice, and
 that the rows equal the port's oracle; then it holds each kernel
 against its plain torch version at the main path's shapes (plus the
 first 2^20 rows, the whole table and the edge cases) and times both.
-Last, the path of the four kernels no query reaches: it drives
+Then the path of the four kernels no query reaches: it drives
 ``repro_torch.kernels.ops``' ``flash_attention`` (granite-3-2b at 4096
 and 32768 tokens, hymba-1.5b's window), ``ssd_scan`` (mamba2-130m,
 hymba-1.5b's mixer), ``filter_agg`` (TPC-H Q6 over the SF 1 lineitem
 columns, against the query's revenue) and ``groupby_onehot`` (Q1's group
 id) with their launch counts reset, then holds each against its plain
 version and times it beside its bound and, where one PyTorch call
-computes the same function, that call.
+computes the same function, that call. Last, a profile of the two
+redesigned kernels' main calls, kernel by kernel (torch.profiler).
 Exits nonzero on any failure. The last two lines are JSON: the kernel
 table, then ``{"ok": true, "device": ...}``.
 """
@@ -137,6 +140,11 @@ def main() -> int:
         for line in ext.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
+    # the bf16 attention kernel reached the tensor cores
+    hgmma = ext.sass("flash_attention").count("HGMMA")
+    log(f"flash_attention SASS: {hgmma} HGMMA instructions")
+    if hgmma < 1:
+        raise AssertionError("flash_attention: no HGMMA in its SASS")
 
     dev = torch.device("cuda", 0)
     state, launches = query_phase(torch, ext)
@@ -154,6 +162,7 @@ def main() -> int:
         kernels.extend(standalone_kernel_phase(torch, ext, dev, state,
                                                flush))
         log(f"standalone kernel phase: {time.perf_counter() - t0:.1f} s")
+        profile_phase(torch, dev, state)
     finally:
         for s in state["sessions"]:
             s.close()
@@ -898,11 +907,38 @@ def _library_sort_ms(torch, flush, keys, mask):
     return _time_ms(torch, lambda: torch.sort(packed, stable=True), flush)
 
 
+def _radix_passes(torch, mask, keys, descending=None):
+    """Live passes of the radix sort on these keys: the 8-bit digits of
+    the encoded lanes (invalid flag first) not equal in every row."""
+    from repro_torch.kernels import sortnet
+    desc = descending or [False] * len(keys)
+    lanes = [(~mask).long()] + [sortnet.encode_key(k, d)
+                                for k, d in zip(keys, desc)]
+    return len(sortnet.live_digits(lanes))
+
+
+def _edge_key(np, rng, kind, n):
+    """A key column for the radix sort's edges: all equal (no live
+    digit), the int64 extremes, f64 with -0.0, NaN and ±inf, or ties."""
+    if kind == "equal":
+        return np.full(n, -3, np.int64)
+    if kind == "extremes":
+        return rng.choice(np.array([np.iinfo(np.int64).min,
+                                    np.iinfo(np.int64).max, -1, 0, 1],
+                                   np.int64), n)
+    if kind == "f64":
+        f = rng.normal(size=n).round(1)
+        return np.where(rng.random(n) < 0.4, rng.choice(np.array(
+            [-0.0, 0.0, np.nan, np.inf, -np.inf]), n), f)
+    return rng.integers(-5, max(n // 4, 2), n).astype(np.int64)
+
+
 def sort_kernel_phase(torch, dev, state, launches, flush):
     """``fused_sort_agg`` and ``fused_topk`` against their plain versions:
     at the main path's captured inputs (the GROUP BY l_orderkey fragment,
     Q3's final), at 2^20 rows, and on the edge cases."""
     import numpy as np
+    from repro_torch.analysis import roofline
     from repro_torch.exec.batch import bucket_capacity, from_numpy
     from repro_torch.kernels import ops
     from repro_torch.kernels import sort_agg as sa
@@ -943,13 +979,16 @@ def sort_kernel_phase(torch, dev, state, launches, flush):
     sa_results, library = {}, {}
     for label, (k, v, f, m) in (("2^20", (key20, val20, fns, mask20)),
                                 ("main", (keys, values, fns, mask))):
+        passes = _radix_passes(torch, m, k)
+        log(f"kernel sort_agg {label}: {passes} live radix passes")
         sa_results[label] = _hold(
             torch, flush, f"sort_agg {label}",
             lambda: sa_call(k, v, f, m),
             lambda: sa.fused_sort_agg_plain(k, v, f, m),
             _compare_sort_agg, sa_bound(k, v, f, m),
             dict(rows=int(m.sum()), capacity=m.numel(),
-                 groups=int(sa_call(k, v, f, m)[2].sum())))
+                 groups=int(sa_call(k, v, f, m)[2].sum()),
+                 radix_passes=passes))
         library[label] = _library_sort_ms(torch, flush, k, m)
         log(f"kernel sort_agg {label}: library torch.sort(stable=True) of "
             f"the packed key {library[label]} ms")
@@ -978,6 +1017,24 @@ def sort_kernel_phase(torch, dev, state, launches, flush):
                           sa.fused_sort_agg_plain(kt, [vt, None, vt, vt],
                                                   all_fns, mt),
                           f"sort_agg {label}")
+    # the radix sort's edges: one row, one and two radix blocks (2^12,
+    # 2^13 rows), no live pass, the int64 extremes, 3 key lanes
+    for n, kinds in ((1, ["ties"]), (1 << 12, ["equal"]),
+                     (1 << 12, ["extremes"]),
+                     (1 << 13, ["ties", "extremes", "ties"]),
+                     (1 << 13, ["equal", "equal"])):
+        kt = [torch.from_numpy(_edge_key(np, rng, kd, n)).to(dev)
+              for kd in kinds]
+        vt = torch.from_numpy(rng.normal(size=n)).to(dev)
+        mt = torch.from_numpy(rng.random(n) < 0.8).to(dev)
+        label = f"{n} rows, keys {'/'.join(kinds)}"
+        _compare_sort_agg(
+            ops.fused_sort_agg(kt, [vt, None, vt, vt], all_fns, mt,
+                               tiling=roofline.sort_tiling(
+                                   "sort_agg", n_keys=len(kt))),
+            sa.fused_sort_agg_plain(kt, [vt, None, vt, vt], all_fns, mt),
+            f"sort_agg {label}")
+        cases[label] = None
     _sync(torch)
     log(f"kernel sort_agg: {', '.join(cases)} = plain")
     rows = [_table_row("sort_agg", launches, sa_results, "main",
@@ -1016,11 +1073,15 @@ def sort_kernel_phase(torch, dev, state, launches, flush):
     tk_results = {}
     for label, (c, m, sk) in (("2^20", (rand, rmask, rkeys)),
                               ("main", (tcols, tmask, sort_keys))):
+        passes = _radix_passes(torch, m, [c[k] for k, _ in sk],
+                               [bool(d) for _, d in sk])
+        log(f"kernel topk {label}: {passes} live radix passes")
         tk_results[label] = _hold(
             torch, flush, f"topk {label}", lambda: tk_call(c, m, sk),
             lambda: tk_plain(c, m, sk), _compare_topk, tk_bound(c, m, sk),
             dict(rows=int(m.sum()), capacity=m.numel(), limit=limit,
-                 sort_keys=[[k, bool(d)] for k, d in sk]))
+                 sort_keys=[[k, bool(d)] for k, d in sk],
+                 radix_passes=passes))
     # edge cases at 2^16 rows
     n = 1 << 16
     sub = {c: v[:n].clone() for c, v in rand.items()}
@@ -1041,10 +1102,71 @@ def sort_kernel_phase(torch, dev, state, launches, flush):
     for label, (c, m, lim) in tcases.items():
         _compare_topk(tk_call(c, m, rkeys, lim), tk_plain(c, m, rkeys, lim),
                       f"topk {label}")
+    # the radix sort's edges: f64 keys with -0.0, NaN and ±inf, ascending
+    # and descending, over the int64 extremes and an all-equal key, at
+    # one row and one and two radix blocks
+    for n in (1, 1 << 12, 1 << 13):
+        ec = {name: torch.from_numpy(_edge_key(np, rng, name, n)).to(dev)
+              for name in ("f64", "extremes", "equal")}
+        em = torch.from_numpy(rng.random(n) < 0.9).to(dev)
+        for sk in ([("f64", False)], [("f64", True)], [("equal", True)],
+                   [("extremes", True), ("f64", False), ("equal", False)]):
+            lab = f"{n} rows, keys {sk}"
+            tiling = roofline.sort_tiling("topk", n_keys=len(sk))
+            _compare_topk(ops.fused_topk(ec, em, sort_keys=sk, limit=7,
+                                         tiling=tiling),
+                          tk.fused_topk_plain(ec, em, sort_keys=sk, limit=7),
+                          f"topk {lab}")
+            tcases[lab] = None
     _sync(torch)
     log(f"kernel topk: {', '.join(tcases)} = plain")
     rows.append(_table_row("topk", launches, tk_results, "main"))
     return rows
+
+
+# -- where the redesigned kernels' time goes ----------------------------------
+
+def _profile(torch, label, fn):
+    """Device time of each CUDA kernel one call of ``fn`` launches
+    (torch.profiler, after a warm-up call), largest first."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    _sync(torch)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        _sync(torch)
+    rows = []
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None)
+        if us is None:
+            us = getattr(ev, "cuda_time_total", 0)
+        if us > 0 and "Memcpy" not in ev.key and "Memset" not in ev.key:
+            rows.append((us, ev.count, ev.key.split("(")[0]))
+    total = sum(r[0] for r in rows)
+    log(f"profile {label}: {total / 1e3:.4f} ms of device time in "
+        f"{sum(r[1] for r in rows)} launches")
+    for us, count, key in sorted(rows, reverse=True):
+        log(f"  {us / 1e3:9.4f} ms  x{count:<3d} {key[:70]}")
+
+
+def profile_phase(torch, dev, state):
+    """Kernel by kernel, the main calls of the two redesigned kernels: the
+    GROUP BY l_orderkey fragment's sort_agg (radix passes, then the
+    segmented scan) and granite-3-2b's bf16 attention at S 4096."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    (keys, values, fns, mask), kw = state["sort_input"]
+    _profile(torch, "sort_agg main", lambda: ops.fused_sort_agg(
+        keys, values, fns, mask, **kw))
+    g = get_config("granite-3-2b")
+    rng = np.random.default_rng(1)
+    q, k, v = (torch.from_numpy(rng.standard_normal(
+        (h, 4096, g.head_dim_), dtype=np.float32)).to(dev, torch.bfloat16)
+        for h in (g.n_heads, g.n_kv_heads, g.n_kv_heads))
+    _profile(torch, "flash_attention granite S4096 causal bf16",
+             lambda: ops.flash_attention(q, k, v, causal=True))
 
 
 # -- the kernels no query reaches ---------------------------------------------
@@ -1057,6 +1179,21 @@ def _attn_pairs(S, causal, window):
     lo = np.maximum(0, i - window + 1) if window else np.zeros_like(i)
     hi = i + 1 if causal else np.full_like(i, S)
     return int(np.maximum(hi - lo, 0).sum())
+
+
+def _flash_executed(S, causal, window, hd, bf16):
+    """Operations a head's attention executes on the card: every 64-row
+    query block computes each 64-key tile the reference's block skipping
+    keeps (none wholly above the diagonal or before the window), at 6·hd
+    a pair in the bf16 kernel (QKᵀ, then P split in two bf16 parts times
+    V) and 4·hd in the float32 one."""
+    nk = -(-S // 64)
+    tiles = 0
+    for q0 in range(0, S, 64):
+        kb0 = max(0, q0 - window + 1) // 64 if window else 0
+        kb1 = min(nk, min(q0 + 63, S - 1) // 64 + 1) if causal else nk
+        tiles += kb1 - kb0
+    return tiles * 64 * 64 * (6 if bf16 else 4) * hd
 
 
 def _ssd_flops(b, S, H, P, N, Q):
@@ -1170,7 +1307,17 @@ def _standalone_cases(torch, dev, state):
              ("ragged S200 bf16", *g, 200, True, 0, torch.bfloat16),
              ("group 1 bf16", g[1], g[1], g[2], 1024, True, 0,
               torch.bfloat16),
-             ("non-causal bf16", *g, 1024, False, 0, torch.bfloat16)]
+             ("non-causal bf16", *g, 1024, False, 0, torch.bfloat16),
+             # the tensor-core kernel's edges: head dim 128 (two TMA
+             # boxes a row) ragged, windowed and non-causal, S below one
+             # 64-key tile
+             ("hd128 ragged S333 bf16", 8, 2, 128, 333, True, 0,
+              torch.bfloat16),
+             ("hd128 window 256 S1000 bf16", 4, 2, 128, 1000, True, 256,
+              torch.bfloat16),
+             ("hd128 non-causal S513 bf16", 4, 4, 128, 513, False, 0,
+              torch.bfloat16),
+             ("S40 below one tile bf16", *g, 40, True, 0, torch.bfloat16)]
     for label, H, Hkv, hd, S, causal, window, dtype in flash:
         q, k, v = normal((H, S, hd), dtype), normal((Hkv, S, hd), dtype), \
             normal((Hkv, S, hd), dtype)
@@ -1206,7 +1353,10 @@ def _standalone_cases(torch, dev, state):
             lambda got, nb=nbytes, f=4 * hd * pairs, p=peak:
                 _bound(nb, f, p),
             dict(rows=S, q=[H, S, hd], kv=[Hkv, S, hd], causal=causal,
-                 window=window, dtype=str(dtype).split(".")[1]),
+                 window=window, dtype=str(dtype).split(".")[1],
+                 needed_flop=4 * hd * pairs,
+                 executed_flop=H * _flash_executed(
+                     S, causal, window, hd, dtype == torch.bfloat16)),
             library=library, reps=10 if S >= S32k else REPS))
 
     # the SSD scan: mamba2-130m over 8 sequences of train_4k, hymba-1.5b's
@@ -1357,6 +1507,13 @@ def standalone_kernel_phase(torch, ext, dev, state, flush):
     log("kernel groupby_onehot: Q1 counts = numpy; ids -1 and K = plain")
 
     results = {k: {} for k in STANDALONE}
+    for case in cases:
+        info = case["info"]
+        if "executed_flop" in info:
+            log(f"kernel flash_attention {case['label']}: executed "
+                f"{info['executed_flop'] / 1e9:.3f} GFLOP against "
+                f"{info['needed_flop'] / 1e9:.3f} needed "
+                f"({info['executed_flop'] / info['needed_flop']:.3f}×)")
     for case, got in zip(cases, outs):
         results[case["kernel"]][case["label"]] = _hold(
             torch, flush, f"{case['kernel']} {case['label']}",

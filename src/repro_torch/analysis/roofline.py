@@ -22,7 +22,7 @@ join's build side; the kernel's own limit is its uint32 positions
 
 The sort kernels (sort-aggregate, top-k) kept the whole batch resident
 in VMEM, which capped the rows they took (``resident_sort_tiling``).
-Here the sorting network runs in global memory and sorts only tiles in
+Here the radix sort runs in global memory and stages only blocks in
 shared memory (:func:`sort_tiling`), so what caps the rows is the
 kernels' int32 positions and segment counts (``SORT_MAX_ROWS``, the
 largest power of two they hold), past which their wrappers raise.
@@ -61,7 +61,7 @@ JOIN_MAX_BUILD_ROWS = 1 << 31   # the join kernel's uint32 build positions
 SORT_MAX_ROWS = 1 << 30         # int32 positions and segment counts
 SORT_MAX_LANES = 16             # sortnet.cuh kMaxLanes: invalid flag + keys
 SORT_MAX_AGGS = 8               # sortnet.cuh kMaxScanAggs
-SORT_MAX_TILE = 1 << 12         # rows of the network's shared-memory tile
+SORT_MAX_TILE = 1 << 12         # rows of a radix block in shared memory
 _LANE_BYTES = 8                 # one encoded u64 key lane
 _POS_BYTES = 4                  # the int32 position
 
@@ -202,23 +202,24 @@ def bloom_probe_tiling() -> KernelTiling:
 
 
 def sort_tiling(kernel: str, *, n_keys: int) -> KernelTiling:
-    """The sorting network of ``sort_agg`` and ``topk`` (``csrc/
+    """The LSD radix sort of ``sort_agg`` and ``topk`` (``csrc/
     sortnet.cuh``) over the invalid flag and ``n_keys`` keys, each an
     8-byte lane, plus the int32 position.
 
-    ``block_rows`` is the tile whose stages run in one block's shared
-    memory: the largest power of two, at most ``SORT_MAX_TILE``, whose
-    lanes fit half an SM's shared memory (two tiles per SM).
+    ``block_rows`` is the rows of a radix block (a histogram and a
+    scatter block): the largest power of two, at most ``SORT_MAX_TILE``,
+    whose lanes fit half an SM's shared memory (two blocks per SM; a
+    scatter block stages 12 bytes a row of it, 48 KB at 2^12 rows).
     ``resident_rows`` is what the kernels accept, ``SORT_MAX_ROWS``.
-    The estimates are per row and per global compare-exchange step:
-    one compare per lane of each pair, the row's lanes read and
-    written once."""
+    The estimates are per row and per live 8-bit digit pass: the digit's
+    extraction and its rank, and the scatter's read and write of the
+    8-byte value and the 4-byte position."""
     lanes = 1 + max(n_keys, 0)
     row = lanes * _LANE_BYTES + _POS_BYTES
     fit = (H100_SXM["smem_per_sm"] // 2 - _SMEM_RESERVED) // row
     block = _pow2_floor(max(min(SORT_MAX_TILE, fit), 2))
-    flops = lanes / 2.0
-    bpr = 2.0 * row
+    flops = 4.0
+    bpr = 2.0 * (_LANE_BYTES + _POS_BYTES)
     ai = flops / bpr
     dominant = "compute" if ai >= machine_balance() else "memory"
     return KernelTiling(kernel, block, SORT_MAX_ROWS, block * row, flops,

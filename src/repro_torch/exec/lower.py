@@ -32,13 +32,13 @@ one-pass vectorized worker loop):
 
   ``scan → [filter…] → partial_agg/merge_agg`` (strategy ``sort``: group
   keys that are not dictionary coded)
-      → :func:`repro_torch.kernels.ops.fused_sort_agg`: the sorting
-        network on ``[invalid] + keys``, a segmented scan and the
+      → :func:`repro_torch.kernels.ops.fused_sort_agg`: the radix
+        sort on ``[invalid] + keys``, a segmented scan and the
         compaction, after the predicate and the aggregate arguments on
         the generic torch ops, as the reference evaluates them.
 
   ``final`` with ORDER BY + LIMIT over ``[filter…]→scan`` (TPC-H Q3's)
-      → :func:`repro_torch.kernels.ops.fused_topk`: the sorting network
+      → :func:`repro_torch.kernels.ops.fused_topk`: the radix sort
         with per-key directions, then a gather of every column; the
         coordinator's host sort still runs on the survivors.
 

@@ -6,7 +6,8 @@
 // The predicate and the aggregate arguments are evaluated before the
 // launch, as the reference evaluates them outside its pallas_call. Then:
 //   1. sortnet::sort orders the rows by [invalid] + the int64 group keys
-//      + the position (the key lanes and positions only; sortnet.cuh);
+//      + the position (a stable LSD radix sort of the key lanes that
+//      carries the positions; sortnet.cuh);
 //   2. one segmented scan (sortnet::segmented_scan) over the sorted rows:
 //      a row is a segment head where any lane differs from the row
 //      before; each aggregate value is read at the row's position, as
@@ -19,7 +20,8 @@
 //      lane at or past the segment count takes the identities (INT64_MAX
 //      keys, 0 sums, +-inf min/max, false mask). The output equals
 //      operators.make_sort_agg lane for lane.
-// What bounds it: HBM bytes of the network's global passes (sortnet.cuh).
+// What bounds it: HBM bytes of the radix passes (sortnet.cuh) and of the
+// scan's reads of every lane.
 
 #include "sortnet.cuh"
 
@@ -109,14 +111,16 @@ struct AggSink {
 // mask: the row mask with the predicate folded in (bool, n). keys: n_keys
 // int64 columns. vals: n_aggs f64 columns (a count's pointer is unused),
 // fns: program.AGG_CODES. lanes: 1 + n_keys u64 scratch columns, pos: n
-// int32 scratch, tile: the shared-memory tile (roofline.sort_tiling).
+// int32 scratch, tile: rows a radix block (roofline.sort_tiling), scratch:
+// the radix sort's scratch_bytes (sortnet::radix_layout).
 // aux_v: n_aggs * ceil(n / 1024) doubles, aux_i: 2 * ceil(n / 1024) + 1
 // ints. out_keys / out_vals / out_mask: n rows each.
 extern "C" int sort_agg_launch(const unsigned char* mask, int64_t n,
                                const int64_t* key_ptrs, int n_keys,
                                const int64_t* val_ptrs, const int* fns,
                                int n_aggs, const int64_t* lane_ptrs,
-                               int* pos, int tile, double* aux_v,
+                               int* pos, int tile, void* scratch,
+                               int64_t scratch_bytes, double* aux_v,
                                int* aux_i, const int64_t* out_key_ptrs,
                                const int64_t* out_val_ptrs,
                                unsigned char* out_mask, void* stream) {
@@ -148,7 +152,7 @@ extern "C" int sort_agg_launch(const unsigned char* mask, int64_t n,
   }
   vals.n = ops.n = n_aggs;
   out.mask = out_mask;
-  int rc = sort(mask, src, lanes, pos, n, tile, s);
+  int rc = sort(mask, src, lanes, pos, n, tile, scratch, scratch_bytes, s);
   if (rc != 0) return rc;
   return segmented_scan(AggLoad{lanes, pos, vals},
                         AggSink{lanes, vals, out, n}, n, ops, aux_v, aux_i,

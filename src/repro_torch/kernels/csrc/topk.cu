@@ -5,15 +5,16 @@
 //
 // The predicate is folded into the mask before the launch. Then:
 //   1. sortnet::sort orders the rows by [invalid] + the sort keys, each
-//      ascending or descending, + the position (the key lanes and
-//      positions only; sortnet.cuh), so invalid rows sort last and ties
-//      keep row order, as np.lexsort does;
+//      ascending or descending, + the position (a stable LSD radix sort
+//      of the key lanes that carries the positions; sortnet.cuh), so
+//      invalid rows sort last and ties keep row order, as np.lexsort does;
 //   2. one gather writes every column in sorted order, by position,
 //      whatever its width (1, 2, 4 or 8 bytes), and the mask
 //      valid & (lane < limit).
 // The reference narrows every column to 32 bits on the TPU (Mosaic has no
 // 64-bit lanes); Hopper has them, so every column keeps its dtype.
-// What bounds it: HBM bytes of the network's global passes (sortnet.cuh).
+// What bounds it: HBM bytes of the radix passes (sortnet.cuh); a float64
+// key may keep all eight of its digits live.
 
 #include "sortnet.cuh"
 
@@ -61,13 +62,15 @@ __global__ void gather_kernel(const int* __restrict__ pos, Gather g,
 
 // mask: the row mask with the predicate folded in (bool, n). keys:
 // n_keys sort-key columns, types program.DTYPE_CODES, desc 0/1 each.
-// lanes: 1 + n_keys u64 scratch columns, pos: n int32 scratch, tile: the
-// shared-memory tile (roofline.sort_tiling). src / dst / elem: n_cols
+// lanes: 1 + n_keys u64 scratch columns, pos: n int32 scratch, tile: rows
+// a radix block (roofline.sort_tiling), scratch: the radix sort's
+// scratch_bytes (sortnet::radix_layout). src / dst / elem: n_cols
 // columns and their sorted outputs, element sizes 1, 2, 4 or 8 bytes.
 extern "C" int topk_launch(const unsigned char* mask, int64_t n,
                            const int64_t* key_ptrs, const int* key_types,
                            const int* key_desc, int n_keys,
                            const int64_t* lane_ptrs, int* pos, int tile,
+                           void* scratch, int64_t scratch_bytes,
                            const int64_t* src_ptrs, const int64_t* dst_ptrs,
                            const int* elem, int n_cols, int64_t limit,
                            unsigned char* out_mask, void* stream) {
@@ -89,7 +92,8 @@ extern "C" int topk_launch(const unsigned char* mask, int64_t n,
   for (int q = 0; q <= n_keys; ++q)
     lanes.k[q] = reinterpret_cast<u64*>(lane_ptrs[q]);
   lanes.n = n_keys + 1;
-  const int rc = sort(mask, src, lanes, pos, n, tile, s);
+  const int rc =
+      sort(mask, src, lanes, pos, n, tile, scratch, scratch_bytes, s);
   if (rc != 0) return rc;
   for (int c0 = 0; c0 == 0 || c0 < n_cols; c0 += kMaxGather) {
     Gather g{};

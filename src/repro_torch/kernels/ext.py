@@ -23,6 +23,9 @@ Every source builds with ``-fmad=false`` (the query kernels' multiplies
 and adds round apart, as the reference's unfused arithmetic does) except
 those in ``FMA_SOURCES``: the attention and SSD kernels contract
 multiply-adds, as they are held to a tolerance, not to bit parity.
+``flash_attention`` links ``-lcuda`` (``LIBS``; with the toolkit's stub
+directory on the search path where it has one) for libcuda's
+``cuTensorMapEncodeTiled``.
 """
 
 from __future__ import annotations
@@ -63,6 +66,9 @@ NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 FMA_SOURCES = ("flash_attention", "ssd_scan")
+# libraries linked after the source: the bf16 attention kernel encodes its
+# TMA tensor maps with libcuda's cuTensorMapEncodeTiled
+LIBS = {"flash_attention": ["-lcuda"]}
 
 _P, _I, _L, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, \
     ctypes.c_uint, ctypes.c_float
@@ -70,10 +76,11 @@ _P, _I, _L, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, \
 # program, [K,] partials and output, grid, stream (the join adds the
 # gathered-column mask, the probe key and the sorted build keys; the
 # Bloom probe takes the key, mask, words, bits, k and its output; the
-# sort kernels take the mask and rows, key columns, their scratch lanes
-# and positions and the tile, then the sort-aggregate's values, scan
-# scratch and outputs, or the top-k's columns, limit and mask; the
-# fixed-layout and model kernels take their tensors, shapes and scalars)
+# sort kernels take the mask and rows, key columns, their output lanes
+# and positions, the radix block rows, the radix scratch and its bytes,
+# then the sort-aggregate's values, scan scratch and outputs, or the
+# top-k's columns, limit and mask; the fixed-layout and model kernels
+# take their tensors, shapes and scalars)
 _ARGTYPES = {
     "filter_agg": [_P, _P, _I, _P, _L, _P, _P, _P, _P, _I, _P, _P, _I, _I,
                    _P],
@@ -82,10 +89,10 @@ _ARGTYPES = {
     "join_probe": [_P, _P, _I, _U, _P, _L, _P, _I, _P, _L, _P, _P, _P, _P,
                    _I, _I, _P, _P, _I, _I, _P],
     "bloom": [_P, _I, _P, _L, _P, _L, _I, _P, _I, _I, _P],
-    "sort_agg": [_P, _L, _P, _I, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P,
-                 _P, _P],
-    "topk": [_P, _L, _P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _I, _L, _P,
-             _P],
+    "sort_agg": [_P, _L, _P, _I, _P, _P, _I, _P, _P, _I, _P, _L, _P, _P,
+                 _P, _P, _P, _P],
+    "topk": [_P, _L, _P, _P, _P, _I, _P, _P, _I, _P, _L, _P, _P, _P, _I,
+             _L, _P, _P],
     "filter_agg_q6": [_P, _P, _P, _P, _L, _I, _I, _F, _F, _F, _P, _P, _I,
                       _P],
     "groupby_onehot": [_P, _P, _L, _I, _I, _P, _P, _I, _P],
@@ -134,11 +141,22 @@ def nvcc_flags(name: str) -> list[str]:
     return list(NVCC_FLAGS)
 
 
+def _link_flags(name: str, nvcc: str) -> list[str]:
+    """``LIBS[name]``, with the toolkit's stub directory on the search
+    path where it has one."""
+    libs = LIBS.get(name, [])
+    root = Path(nvcc).resolve().parents[1]
+    stubs = [d for d in (root / "lib64" / "stubs",
+                         root / "targets" / "x86_64-linux" / "lib" / "stubs")
+             if d.is_dir()]
+    return ([f"-L{stubs[0]}"] if libs and stubs else []) + libs
+
+
 def _lib_path(name: str) -> Path:
     h = hashlib.sha1()
     for f in (SOURCES[name],) + HEADERS:
         h.update((_CSRC / f).read_bytes())
-    h.update(" ".join(nvcc_flags(name)).encode())
+    h.update(" ".join(nvcc_flags(name) + LIBS.get(name, [])).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
@@ -167,7 +185,7 @@ def _build_missing() -> dict[str, float]:
         tmp = out.with_suffix(f".tmp{os.getpid()}")
         log = open(BUILD_DIR / f"{name}.log", "w")
         cmd = [nvcc, *nvcc_flags(name), "-o", str(tmp),
-               str(_CSRC / SOURCES[name])]
+               str(_CSRC / SOURCES[name]), *_link_flags(name, nvcc)]
         procs[name] = (subprocess.Popen(cmd, stdout=log,
                                         stderr=subprocess.STDOUT),
                        log, tmp, out)
@@ -193,6 +211,16 @@ def build_log(name: str) -> str:
     this checkout."""
     p = BUILD_DIR / f"{name}.log"
     return p.read_text() if p.exists() else ""
+
+
+def sass(name: str) -> str:
+    """The SASS of library ``name`` (``cuobjdump -sass``), built first if
+    needed: what the card runs, e.g. to count its tensor-core
+    instructions."""
+    build_all()
+    cuobjdump = Path(_nvcc()).parent / "cuobjdump"
+    return subprocess.run([str(cuobjdump), "-sass", str(_lib_path(name))],
+                          capture_output=True, text=True, check=True).stdout
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -6,12 +6,15 @@ KV head h // group. Scores and the softmax are float32 whatever the input
 type; the output is in q's type. ``window`` > 0 limits each query to the
 last ``window`` keys.
 
-:func:`flash_attention_cuda` launches the hand-written kernel
+:func:`flash_attention_cuda` launches the hand-written kernels
 (``csrc/flash_attention.cu``: one CTA per (head, 64-row query block), an
-online softmax over 64-key tiles, float32 or bf16 inputs, head dim 64 or
-128). :func:`flash_attention_plain` is the same function in plain torch:
-one block of query rows at a time against the keys it can see, so no
-S×S score matrix of every head is ever held at once.
+online softmax over 64-key tiles, head dim 64 or 128; float32 on the
+CUDA cores, bf16 on the tensor cores through TMA and ``wgmma``, with P
+split in two bf16 parts so that the output stays within half a bf16 ulp
+of the float32 result). :func:`flash_attention_plain` is the same
+function in plain torch: one block of query rows at a time against the
+keys it can see, so no S×S score matrix of every head is ever held at
+once.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Public wrappers of the hand-written kernels: the fused query kernels
 (scan-aggregate, join-probe and Bloom-probe, and the sort-aggregate and
-top-k kernels over the sorting network of ``csrc/sortnet.cuh``), the
+top-k kernels over the radix sort of ``csrc/sortnet.cuh``), the
 fixed-layout benchmark kernels (``filter_agg``, TPC-H Q6; ``groupby_onehot``)
 and the model kernels (``flash_attention``, ``ssd_scan``); these four
 keep the reference's signatures (``repro.kernels.ops``).

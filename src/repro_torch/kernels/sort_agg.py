@@ -12,7 +12,8 @@ keys, 0 sums and counts, ±inf min/max, a false mask). The output equals
 The caller evaluates the predicate (folded into ``mask``), the int64
 group keys and the f64 aggregate arguments on the generic torch ops
 first, as the reference evaluates them outside its ``pallas_call``.
-:func:`fused_sort_agg_cuda` launches ``csrc/sort_agg.cu``;
+:func:`fused_sort_agg_cuda` launches ``csrc/sort_agg.cu`` (a radix sort
+of the key lanes, ``csrc/sortnet.cuh``, then a segmented scan);
 :func:`fused_sort_agg_plain` is the same function in plain torch (the
 twins of ``kernels.sortnet``), for CPU tensors and as the yardstick on
 the card.
@@ -27,7 +28,8 @@ from repro_torch.analysis.roofline import SORT_MAX_AGGS, SORT_MAX_LANES, \
 from repro_torch.kernels import ext
 from repro_torch.kernels.common import ACC_DTYPE, KEY_DTYPE, NEUTRAL
 from repro_torch.kernels.program import AGG_CODES
-from repro_torch.kernels.sortnet import lexsort_order, segmented_scan
+from repro_torch.kernels.sortnet import lexsort_order, \
+    radix_scratch_bytes, segmented_scan
 
 NAME = "sort_agg"
 INT64_SENTINEL = torch.iinfo(torch.int64).max
@@ -113,6 +115,8 @@ def fused_sort_agg_cuda(keys: list, values: list, fns: list, mask, *,
     A, nb = len(fns), -(-n // SCAN_TILE)
     lanes = torch.empty((len(keys) + 1, n), dtype=torch.int64, device=dev)
     pos = torch.empty((n,), dtype=torch.int32, device=dev)
+    nbytes = radix_scratch_bytes(n, len(keys) + 1, tiling.block_rows)
+    scratch = torch.empty((nbytes,), dtype=torch.uint8, device=dev)
     aux_v = torch.empty((max(A, 1) * nb,), dtype=ACC_DTYPE, device=dev)
     aux_i = torch.empty((2 * nb + 1,), dtype=torch.int32, device=dev)
     out_keys = torch.empty((len(keys), n), dtype=KEY_DTYPE, device=dev)
@@ -123,7 +127,8 @@ def fused_sort_agg_cuda(keys: list, values: list, fns: list, mask, *,
     rc = lib.sort_agg_launch(
         mask.data_ptr(), n, ext.ptr_array(keys), len(keys), ext.ptr_array(values),
         codes, A, ext.ptr_array(list(lanes)),
-        pos.data_ptr(), tiling.block_rows, aux_v.data_ptr(),
+        pos.data_ptr(), tiling.block_rows, scratch.data_ptr(), nbytes,
+        aux_v.data_ptr(),
         aux_i.data_ptr(), ext.ptr_array(list(out_keys)),
         ext.ptr_array(list(out_vals)), out_mask.data_ptr(), stream)
     ext.check(lib, rc, NAME)

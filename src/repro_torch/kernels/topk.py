@@ -11,7 +11,8 @@ runs on the surviving rows; the stable order makes the pre-selection
 idempotent under it.
 
 The caller folds the predicate into ``mask`` first.
-:func:`fused_topk_cuda` launches ``csrc/topk.cu``;
+:func:`fused_topk_cuda` launches ``csrc/topk.cu`` (the radix sort of
+``csrc/sortnet.cuh``, then one gather);
 :func:`fused_topk_plain` is the same function in plain torch, for CPU
 tensors and as the yardstick on the card.
 """
@@ -23,7 +24,7 @@ import torch
 from repro_torch.analysis.roofline import SORT_MAX_LANES, SORT_MAX_ROWS
 from repro_torch.kernels import ext
 from repro_torch.kernels.program import DTYPE_CODES
-from repro_torch.kernels.sortnet import lexsort_order
+from repro_torch.kernels.sortnet import lexsort_order, radix_scratch_bytes
 
 NAME = "topk"
 
@@ -78,6 +79,8 @@ def fused_topk_cuda(columns: dict, mask, *, sort_keys: list, limit: int,
     dst = [torch.empty_like(t) for t in src]
     lanes = torch.empty((len(keys) + 1, n), dtype=torch.int64, device=dev)
     pos = torch.empty((n,), dtype=torch.int32, device=dev)
+    nbytes = radix_scratch_bytes(n, len(keys) + 1, tiling.block_rows)
+    scratch = torch.empty((nbytes,), dtype=torch.uint8, device=dev)
     out_mask = torch.empty((n,), dtype=torch.bool, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.topk_launch(
@@ -85,7 +88,7 @@ def fused_topk_cuda(columns: dict, mask, *, sort_keys: list, limit: int,
         ext.int_array([DTYPE_CODES[k.dtype] for k in keys]),
         ext.int_array([int(desc) for _, desc in sort_keys]), len(keys),
         ext.ptr_array(list(lanes)), pos.data_ptr(), tiling.block_rows,
-        ext.ptr_array(src), ext.ptr_array(dst),
+        scratch.data_ptr(), nbytes, ext.ptr_array(src), ext.ptr_array(dst),
         ext.int_array([t.element_size() for t in src]), len(src),
         int(limit), out_mask.data_ptr(), stream)
     ext.check(lib, rc, NAME)

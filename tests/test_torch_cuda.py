@@ -324,6 +324,80 @@ def test_topk_kernel_matches_plain(session, capacity, limit):
             assert torch.equal(got[c], want[c])
 
 
+def _edge_keys(kind: str, capacity: int, rng) -> np.ndarray:
+    """A key column for the radix sort's edge cases: every row equal (no
+    live digit), the int64 extremes, or ties."""
+    if kind == "equal":
+        return np.full(capacity, -3, np.int64)
+    if kind == "extremes":
+        return rng.choice(np.array([np.iinfo(np.int64).min,
+                                    np.iinfo(np.int64).max, -1, 0, 1],
+                                   np.int64), capacity)
+    return rng.integers(-5, max(capacity // 4, 2), capacity).astype(np.int64)
+
+
+@pytest.mark.parametrize("capacity,kinds", [
+    (1, ["ties"]), (1 << 12, ["equal"]), (1 << 12, ["extremes"]),
+    (1 << 13, ["ties", "extremes", "ties"]), (1 << 13, ["equal", "ties"]),
+    (1 << 16, ["extremes", "equal", "ties"]),
+])
+def test_sort_agg_radix_edge_cases_match_plain(card, capacity, kinds):
+    """The radix sort under sort_agg lane for lane against the plain
+    version: one row, one and two radix blocks (2^12, 2^13), all-equal
+    keys (no live pass), INT64_MIN / INT64_MAX keys, 3 key lanes."""
+    rng = np.random.default_rng(capacity + len(kinds))
+    dev = torch.device("cuda", 0)
+    keys = [torch.from_numpy(_edge_keys(k, capacity, rng)).to(dev)
+            for k in kinds]
+    v = torch.from_numpy(rng.normal(size=capacity)).to(dev)
+    mask = torch.from_numpy(rng.random(capacity) < 0.8).to(dev)
+    fns = ["sum", "count", "min", "max"]
+    values = [v, None, v, v]
+    tiling = roofline.sort_tiling("sort_agg", n_keys=len(keys))
+    got = _launched("sort_agg", lambda: ops.fused_sort_agg(
+        keys, values, fns, mask, tiling=tiling))
+    want = sa.fused_sort_agg_plain(keys, values, fns, mask)
+    for g, w in zip(got[0], want[0]):
+        assert torch.equal(g, w)
+    assert torch.equal(got[2], want[2])
+    for g, w in zip(got[1], want[1]):
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                   equal_nan=True, **TOL)
+
+
+@pytest.mark.parametrize("capacity", [1, 1 << 12, 1 << 13])
+@pytest.mark.parametrize("descending", [False, True])
+def test_topk_radix_float_keys_match_plain(card, capacity, descending):
+    """f64 sort keys with -0.0, NaN and ±inf, ascending and descending,
+    over int64 extremes and all-equal columns, lane for lane (floats bit
+    for bit) against the plain version."""
+    rng = np.random.default_rng(capacity + descending)
+    dev = torch.device("cuda", 0)
+    f = rng.normal(size=capacity).round(1)
+    f = np.where(rng.random(capacity) < 0.4, rng.choice(np.array(
+        [-0.0, 0.0, np.nan, np.inf, -np.inf]), capacity), f)
+    cols = {"f": torch.from_numpy(f).to(dev),
+            "i": torch.from_numpy(_edge_keys("extremes", capacity, rng)).to(
+                dev),
+            "e": torch.from_numpy(_edge_keys("equal", capacity, rng)).to(
+                dev)}
+    mask = torch.from_numpy(rng.random(capacity) < 0.9).to(dev)
+    for sort_keys in ([("f", descending)], [("e", descending)],
+                      [("i", not descending), ("f", descending),
+                       ("e", False)]):
+        got, gmask = _launched("topk", lambda: ops.fused_topk(
+            cols, mask, sort_keys=sort_keys, limit=7,
+            tiling=roofline.sort_tiling("topk", n_keys=len(sort_keys))))
+        want, wmask = tk.fused_topk_plain(cols, mask, sort_keys=sort_keys,
+                                          limit=7)
+        assert torch.equal(gmask, wmask)
+        for c in want:
+            g, w = got[c], want[c]
+            if g.is_floating_point():
+                g, w = g.view(torch.int64), w.view(torch.int64)
+            assert torch.equal(g, w), (sort_keys, c)
+
+
 SORTAGG_SQL = ("select l_orderkey, sum(l_quantity) as s, count(*) as c "
                "from lineitem group by l_orderkey order by l_orderkey")
 
@@ -442,6 +516,34 @@ def test_flash_attention_kernel_matches_plain(card, dtype, S, hd, heads,
         np.testing.assert_allclose(got.float().cpu().numpy(),
                                    exact.cpu().numpy(), atol=2e-5,
                                    rtol=2.0 ** -8)
+
+
+@pytest.mark.parametrize("S,hd,heads,kv_heads,causal,window", [
+    (256, 128, 4, 2, True, 0), (333, 128, 2, 2, True, 0),
+    (200, 64, 8, 2, True, 0), (40, 64, 4, 2, True, 0),
+    (50, 128, 2, 1, False, 0), (1024, 64, 8, 8, True, 0),
+    (777, 64, 5, 1, True, 256), (640, 128, 4, 2, True, 100),
+    (1000, 64, 8, 2, False, 0), (513, 128, 4, 4, False, 0),
+])
+def test_flash_attention_bf16_tensor_cores_within_half_ulp(
+        card, S, hd, heads, kv_heads, causal, window):
+    """The bf16 tensor-core kernel (split-bf16 P) against the float32
+    plain result on the same bf16 inputs at chip_smoke.py's check (rtol
+    2^-8, atol 2e-5): head dims 64 and 128, ragged S, S below one tile,
+    group 1, windows and non-causal."""
+    from repro_torch.kernels import flash_attention as fl
+    rng = np.random.default_rng(S * hd + heads)
+    q, k, v = (torch.from_numpy(rng.standard_normal((h, S, hd)).astype(
+        np.float32)).to(card, torch.bfloat16)
+        for h in (heads, kv_heads, kv_heads))
+    got = _launched("flash_attention", lambda: ops.flash_attention(
+        q, k, v, causal=causal, window=window))
+    exact = fl.flash_attention_plain(q.float(), k.float(), v.float(),
+                                     causal=causal, window=window)
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               exact.cpu().numpy(), atol=2e-5,
+                               rtol=2.0 ** -8)
 
 
 @pytest.mark.parametrize("draw", ["unit", "mamba2"])

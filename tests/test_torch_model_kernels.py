@@ -116,6 +116,55 @@ def test_flash_attention_matches_blockwise_attention(causal, window):
                                atol=2e-5, rtol=2e-5)
 
 
+def _attention_with_bf16_p(q, k, v, *, causal, window, split):
+    """The bf16 tensor-core kernel's arithmetic in torch: float32 scores
+    and softmax of bf16 inputs, P into the PV product as bf16, once
+    (``split`` False, as SDPA rounds it) or as hi = bf16(p) plus
+    lo = bf16(p - hi), float32 sums, the output rounded to bf16."""
+    BH, S, hd = q.shape
+    group = BH // k.shape[0]
+    kf = k.float().repeat_interleave(group, 0)
+    vf = v.float().repeat_interleave(group, 0)
+    s = q.float() @ kf.transpose(-1, -2) / np.sqrt(hd)
+    i = torch.arange(S)
+    keep = torch.ones((S, S), dtype=torch.bool)
+    if causal:
+        keep &= i[None, :] <= i[:, None]
+    if window:
+        keep &= i[None, :] > i[:, None] - window
+    s = torch.where(keep, s, -1e30)
+    p = torch.where(keep, torch.exp(s - s.amax(-1, keepdim=True)), 0.0)
+    hi = p.bfloat16().float()
+    o = hi @ vf
+    if split:
+        o = o + (p - hi).bfloat16().float() @ vf
+    return (o / p.sum(-1, keepdim=True)).bfloat16()
+
+
+@pytest.mark.parametrize("S,hd,heads,kv_heads,causal,window", [
+    (256, 64, 4, 2, True, 0), (256, 128, 4, 4, False, 0),
+    (256, 64, 4, 2, True, 100), (256, 64, 8, 1, True, 0),
+])
+def test_flash_attention_bf16_needs_p_split(S, hd, heads, kv_heads, causal,
+                                            window):
+    """Why the bf16 kernel splits P: against the float32 result of the
+    plain version on the same bf16 inputs, at chip_smoke.py's half-ulp
+    check (rtol 2^-8, atol 2e-5), P split in two bf16 parts leaves no
+    output outside, and P rounded once to bf16 leaves more than a tenth
+    (the outputs near zero, where the weighted sum cancels)."""
+    q, k, v = (_t(a, "bfloat16") for a in _qkv(3, heads, kv_heads, S, hd))
+    exact = ops.flash_attention(q.float(), k.float(), v.float(),
+                                causal=causal, window=window)
+
+    def outside(split):
+        got = _attention_with_bf16_p(q, k, v, causal=causal, window=window,
+                                     split=split).float()
+        return int(((got - exact).abs() > 2e-5 + 2.0 ** -8 * exact.abs())
+                   .sum())
+    assert outside(split=True) == 0
+    assert outside(split=False) > exact.numel() // 10
+
+
 # -- ssd_scan -----------------------------------------------------------------
 
 def _ssd_inputs(seed, b, S, H, P, N, A_zero=False, mamba2=False):

@@ -124,6 +124,89 @@ def test_lexsort_descending_keeps_the_int64_minimum_and_nan_order():
     assert sortnet.lexsort_order([f], [-1]).tolist() == [1, 2, 0, 3, 4]
 
 
+def _lsd_radix_order(lanes: list) -> torch.Tensor:
+    """``csrc/sortnet.cuh``'s sort in torch integer ops: a stable counting
+    pass per 8-bit digit of the int64-held u64 lanes, the last lane's
+    lowest digit first, from the identity permutation; a digit equal in
+    every row is skipped, and a lane's first pass gathers it at the
+    carried positions."""
+    n = lanes[0].shape[0]
+    order = torch.arange(n)
+    for q, d in sortnet.live_digits(lanes):
+        dig = (lanes[q][order] >> (8 * d)) & 0xFF
+        onehot = torch.nn.functional.one_hot(dig, 256)
+        rank = onehot.cumsum(0).gather(1, dig[:, None])[:, 0] - 1
+        start = torch.cumsum(onehot.sum(0), 0) - onehot.sum(0)
+        dest = start[dig] + rank
+        new = torch.empty_like(order)
+        new[dest] = order
+        order = new
+    return order
+
+
+_EDGE_F64 = np.array([-0.0, 0.0, np.nan, np.inf, -np.inf, 1e-300, -1e-300,
+                      np.finfo(np.float64).max, -np.finfo(np.float64).max])
+_EDGE_I64 = np.array([np.iinfo(np.int64).min, np.iinfo(np.int64).max, 0,
+                      -1, 1], np.int64)
+
+
+@pytest.mark.parametrize("n", [1, 2, 700, 2048])
+@pytest.mark.parametrize("directions", [[1, 1, 1], [1, -1, 1], [-1, -1, 1]])
+def test_lsd_radix_order_is_lexsort_order(n, directions):
+    """Stable LSD radix over the encoded lanes, invalid flag first, gives
+    ``lexsort_order``'s total order (the bitonic network's, position
+    last) on multi-lane keys with ties, -0.0, NaN, ±inf and the int64
+    extremes."""
+    rng = np.random.default_rng(n + 7)
+    f = rng.normal(size=n).round(1)
+    f = np.where(rng.random(n) < 0.3, rng.choice(_EDGE_F64, n), f)
+    i = rng.integers(-3, 3, n).astype(np.int64)
+    i = np.where(rng.random(n) < 0.2, rng.choice(_EDGE_I64, n), i)
+    small = rng.integers(0, 4, n).astype(np.int32)
+    inv = torch.from_numpy((rng.random(n) < 0.2).astype(np.int32))
+    keys = [torch.from_numpy(a) for a in (f, i, small)]
+    want = sortnet.lexsort_order([inv] + keys, [1] + directions)
+    lanes = [inv.long()] + [sortnet.encode_key(k, descending=d < 0)
+                            for k, d in zip(keys, directions)]
+    assert torch.equal(_lsd_radix_order(lanes), want)
+
+
+def test_lsd_radix_skips_constant_digits():
+    """No live digit: the identity; keys below 2^23 with the flag: three
+    key digits and the flag's one, the zero padding adding none (SF 1's
+    GROUP BY l_orderkey)."""
+    n = 64
+    same = sortnet.encode_key(torch.full((n,), -5, dtype=torch.int64))
+    assert sortnet.live_digits([torch.zeros(n, dtype=torch.int64),
+                                same]) == []
+    assert torch.equal(_lsd_radix_order([torch.zeros(n, dtype=torch.int64),
+                                         same]), torch.arange(n))
+    rng = np.random.default_rng(0)
+    key = np.concatenate([rng.integers(1, 6_000_000, n - 8),
+                          np.zeros(8, np.int64)])
+    inv = torch.from_numpy(np.arange(n) >= n - 8).long()
+    lanes = [inv, sortnet.encode_key(torch.from_numpy(key))]
+    assert sortnet.live_digits(lanes) == [(1, 0), (1, 1), (1, 2), (0, 0)]
+    assert torch.equal(_lsd_radix_order(lanes),
+                       sortnet.lexsort_order([inv, torch.from_numpy(key)]))
+
+
+def test_encode_key_orders_as_the_keys():
+    """Unsigned order of the encoded bits is the keys' order: -0.0 ties
+    +0.0, NaN above +inf, descending complemented."""
+    f = torch.tensor([1.0, float("nan"), float("inf"), -0.0, 0.0,
+                      -float("inf"), -2.5])
+    u = sortnet.encode_key(f)
+    as_unsigned = u ^ (-(1 << 63))      # signed order of these is unsigned
+    assert torch.argsort(as_unsigned, stable=True).tolist() == \
+        [5, 6, 3, 4, 0, 2, 1]
+    assert int(u[3]) == int(u[4])
+    assert torch.equal(sortnet.encode_key(f, descending=True), ~u)
+    k = torch.tensor([np.iinfo(np.int64).min, -1, 0, np.iinfo(np.int64).max])
+    ku = sortnet.encode_key(k) ^ (-(1 << 63))
+    assert torch.equal(ku, k)
+
+
 # -- the kernels' plain versions against the reference's kernels ----------------------
 
 SA_AGGS = [("s", "sum", {"t": "bin", "op": "*", "l": col("x"),
