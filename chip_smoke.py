@@ -4,33 +4,40 @@
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
 (ten libraries, one nvcc each, in parallel; it fails unless the bf16
-attention library's SASS holds HGMMA, tensor-core, instructions), then
-drives the port's main path at SF 1 through
+attention library's SASS holds HGMMA and the SSD scan's HMMA, tensor-core,
+instructions), then drives the port's main path at SF 1 through
 ``repro_torch.api.connect()`` (device: the card): TPC-H Q6, Q1 and a
 grouped min/max query (the scan-aggregate kernels); Q12, Q14 and Q19,
 broadcast joins whose join stage runs the join-probe kernel; the
 selective repartition join of the semi-join tests, grouped by a
 dictionary-coded column, whose probe scan runs the Bloom-probe kernel
-and whose join stage runs the join-probe kernel, and
-the same join grouped by ``l_orderkey`` (Bloom kernel; its later stages
-have no kernel arm in either package); Q12 again as a repartition join
-(the join kernel over two exchange leaves); a GROUP BY ``l_orderkey``
-over lineitem, whose stage-0 fragment runs the sort-aggregate kernel on
-2^23 rows; and TPC-H Q3, whose final stage runs the top-k kernel. It
-checks that every fragment of each kernel pipeline ran its CUDA kernel,
-that no stage of these queries waits for a kernel of a later slice, and
-that the rows equal the port's oracle; then it holds each kernel
-against its plain torch version at the main path's shapes (plus the
-first 2^20 rows, the whole table and the edge cases) and times both.
-Then the path of the four kernels no query reaches: it drives
-``repro_torch.kernels.ops``' ``flash_attention`` (granite-3-2b at 4096
-and 32768 tokens, hymba-1.5b's window), ``ssd_scan`` (mamba2-130m,
-hymba-1.5b's mixer), ``filter_agg`` (TPC-H Q6 over the SF 1 lineitem
-columns, against the query's revenue) and ``groupby_onehot`` (Q1's group
-id) with their launch counts reset, then holds each against its plain
-version and times it beside its bound and, where one PyTorch call
-computes the same function, that call. Last, a profile of the two
-redesigned kernels' main calls, kernel by kernel (torch.profiler).
+and whose join stage runs the join-probe kernel, and the same join
+grouped by ``l_orderkey`` (Bloom kernel; its later stages have no
+kernel arm in either package); Q12 again as a repartition join (the
+join kernel over two exchange leaves); a GROUP BY ``l_orderkey`` over
+lineitem, whose stage-0 fragment runs the sort-aggregate kernel on 2^23
+rows; and TPC-H Q3, whose final stage runs the top-k kernel. It checks
+that every fragment of each kernel pipeline ran its CUDA kernel, that
+no stage of these queries waits for a kernel of a later slice, and that
+the rows equal the port's oracle; then it holds each kernel against its
+plain torch version at the main path's shapes (plus the first 2^20
+rows, the whole table and the edge cases) and times both; for the scan
+and join kernels also the profiler's device time of each kernel a call
+launches beside the event window, and for the join the same rows
+through the other forms of its program (unsplit, a probe predicate that
+rejects or accepts every row, the residual alone). Then the path of the
+four kernels no query reaches: it drives ``repro_torch.kernels.ops``'
+``flash_attention`` (granite-3-2b at 4096 and 32768 tokens, hymba-1.5b's
+window), ``ssd_scan`` (mamba2-130m, hymba-1.5b's mixer, and the
+chunk-parallel split's edges: one chunk, chunk 1024, S not a multiple
+of the chunk, one head), ``filter_agg`` (TPC-H Q6 over the SF 1
+lineitem columns, against the query's revenue) and ``groupby_onehot``
+(Q1's group id) with their launch counts reset, then holds each against
+its plain version and times it beside its bound and, where one PyTorch
+call computes the same function, that call; the SSD scan also with each
+phase's device time and its executed against its needed operations.
+Before the kernel phases, a profile of the sort-aggregate's and the
+bf16 attention's main calls, kernel by kernel (torch.profiler).
 Exits nonzero on any failure. The last two lines are JSON: the kernel
 table, then ``{"ok": true, "device": ...}``.
 """
@@ -38,7 +45,6 @@ table, then ``{"ok": true, "device": ...}``.
 from __future__ import annotations
 
 import json
-import statistics
 import subprocess
 import sys
 import threading
@@ -52,6 +58,7 @@ FP64_FLOPS = 34e12             # H100 SXM5 FP64 on the CUDA cores (data sheet)
 INT32_OPS = 67e12
 FP32_FLOPS = 67e12             # H100 SXM5 float32 on the CUDA cores
 BF16_FLOPS = 989e12            # H100 SXM5 dense bf16 on the tensor cores
+TF32_FLOPS = 494.7e12          # H100 SXM5 dense TF32 on the tensor cores
 RTOL = ATOL = 1e-9             # as the reference's row parity tests
 REPS = 25
 MINMAX_SQL = ("select l_returnflag, min(l_quantity) as mq, "
@@ -102,6 +109,8 @@ STANDALONE = {
                        "src/repro/kernels/groupby_onehot.py:52",
                        "groupby_onehot"),
 }
+# the CUDA kernels one join-probe call launches, once each
+JOIN_KERNELS = {"join_probe_kernel": 1, "reduce_partials_kernel": 1}
 LAUNCH_NAME = {"filter_agg": "filter_agg", "groupby_onehot": "groupby",
                "segmented_minmax": "groupby_minmax",
                "join_probe_agg": "join_probe_agg",
@@ -145,10 +154,20 @@ def main() -> int:
     log(f"flash_attention SASS: {hgmma} HGMMA instructions")
     if hgmma < 1:
         raise AssertionError("flash_attention: no HGMMA in its SASS")
+    # the SSD scan's products reached the TF32 tensor cores
+    hmma = ext.sass("ssd_scan").count("HMMA")
+    log(f"ssd_scan SASS: {hmma} HMMA instructions")
+    if hmma < 1:
+        raise AssertionError("ssd_scan: no HMMA in its SASS")
 
     dev = torch.device("cuda", 0)
     state, launches = query_phase(torch, ext)
     try:
+        # first: after the many profiler sessions of the device-time
+        # columns below, the profiler once recorded no launch of the bf16
+        # attention kernel (the cause is not known); a profile that
+        # lacks a kernel it expects is taken again, then fails the run
+        profile_phase(torch, dev, state)
         # 256 MiB, zeroed before each timed call to flush the 50 MB L2
         flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)
         kernels = scan_kernel_phase(torch, dev, state, launches, flush)
@@ -162,7 +181,6 @@ def main() -> int:
         kernels.extend(standalone_kernel_phase(torch, ext, dev, state,
                                                flush))
         log(f"standalone kernel phase: {time.perf_counter() - t0:.1f} s")
-        profile_phase(torch, dev, state)
     finally:
         for s in state["sessions"]:
             s.close()
@@ -470,8 +488,10 @@ def _sync(torch):
 
 
 def _time_ms(torch, fn, flush, reps=REPS):
-    """Median of ``reps`` CUDA-event-timed calls after warm-up, with the
-    L2 cache flushed before each (the caller meets its block cold)."""
+    """Median of ``reps`` CUDA-event-timed calls after three warm-up
+    calls, with the L2 cache flushed before each (the caller meets its
+    block cold). The window holds the host's work of the call too."""
+    import statistics
     for _ in range(3):
         fn()
     times = []
@@ -485,6 +505,65 @@ def _time_ms(torch, fn, flush, reps=REPS):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+# profiler rows that are no kernel of the call: host operators (their
+# device time repeats their kernels'), copies, the profiler's own buffer,
+# the flush's fill (an elementwise kernel)
+_NOT_KERNELS = ("aten::", "cuda", "Activity", "Memcpy", "Memset")
+
+
+def _kernel_times(torch, fn, expect, reps=1, flush=None, tries=5):
+    """{CUDA kernel: (device ms, launches)} per call of ``fn`` over
+    ``reps`` profiled calls after a warm-up call (torch.profiler), the L2
+    flushed before each where ``flush`` is given. Every name in
+    ``expect`` must be part of a kernel the profile holds: one it lost
+    would read as zero device time, so that profile is taken again half
+    a second later (the losses come in runs), up to ``tries`` times in
+    all, before it raises. The profiler also
+    records fewer launches than the calls make at times (PERF.md §7):
+    a kernel of ``expect`` (launched ``expect[name]`` times a call) then
+    counts its mean time per recorded launch times the launches made."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    _sync(torch)
+    for attempt in range(1, tries + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                if flush is not None:
+                    flush.zero_()
+                fn()
+            _sync(torch)
+        out = {}
+        for ev in prof.key_averages():
+            us = getattr(ev, "device_time_total", None)
+            if us is None:
+                us = getattr(ev, "cuda_time_total", 0)
+            key = ev.key.split("(")[0]
+            if us > 0 and not key.startswith(_NOT_KERNELS) \
+                    and "elementwise" not in key:
+                ms, n = out.get(key, (0.0, 0))
+                out[key] = (ms + us / 1e3, n + ev.count)
+        missing = [name for name in expect
+                   if not any(name in k for k in out)]
+        if not missing:
+            break
+        msg = (f"profile {attempt} of {tries} holds no launch of "
+               f"{', '.join(missing)}; kernels seen: {sorted(out)}")
+        if attempt == tries:
+            raise AssertionError(msg)
+        log(msg + "; profiling again")
+        time.sleep(0.5)
+    for name, launches in expect.items():
+        keys = [k for k in out if name in k]
+        made, seen = launches * reps, sum(out[k][1] for k in keys)
+        if seen < made:
+            log(f"profile holds {seen} of the {made} launches of {name}; "
+                f"its time is scaled to {made}")
+            for k in keys:
+                out[k] = (out[k][0] * made / seen, out[k][1])
+    return {k: (ms / reps, n / reps) for k, (ms, n) in out.items()}
 
 
 def _sizes(n_total, main_rows):
@@ -522,11 +601,13 @@ def _program_ops(prog, slot):
                if op not in (COL, CONST))
 
 
-def _program_work(prog, n_eval, n_pass):
-    """Operations of the expression program: the predicate on ``n_eval``
-    rows, the group id, the folds and the aggregate arguments on the
-    ``n_pass`` rows that pass it."""
-    return n_eval * _program_ops(prog, 0) + n_pass * (
+def _program_work(prog, n_eval, n_pass, n_probe=0):
+    """Operations of the expression program: a join's probe predicate on
+    ``n_probe`` rows, the predicate on ``n_eval`` rows, the group id, the
+    folds and the aggregate arguments on the ``n_pass`` rows that pass
+    it."""
+    pre = _program_ops(prog, prog.probe_slot) if prog.has_probe_pred else 0
+    return n_probe * pre + n_eval * _program_ops(prog, 0) + n_pass * (
         _program_ops(prog, 1) + prog.n_aggs
         + sum(_program_ops(prog, 2 + a) for a in range(prog.n_aggs)))
 
@@ -539,12 +620,23 @@ def _bound(nbytes, ops, peak=FP64_FLOPS):
         ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def _device_ms(torch, call, flush, expect):
+    """Device time of each CUDA kernel one call launches (torch.profiler,
+    mean of 10 calls, the L2 flushed before each): {kernel: ms}; each
+    kernel named in ``expect`` must be among them (:func:`_kernel_times`)."""
+    return {k: ms for k, (ms, _) in
+            _kernel_times(torch, call, expect, 10, flush).items()}
+
+
 def _hold(torch, flush, ctx, call, plain, compare, bound, info, *,
-          got=None, reps=REPS, library=None):
+          got=None, reps=REPS, library=None, device=None):
     """One kernel at one shape: its result (``got``, where the main path
     already made it) against the plain version's, both timed, the bound
-    of the work and (``library``) one PyTorch call of the same function.
-    Returns the result row."""
+    of the work and (``library``) one PyTorch call of the same function;
+    with ``device`` ({kernel name: launches a call}, as
+    :func:`_kernel_times` expects), also the profiler's device time of
+    each kernel the call launches beside the event window. Returns the
+    result row."""
     if got is None:
         got = call()
     want = plain()
@@ -555,14 +647,23 @@ def _hold(torch, flush, ctx, call, plain, compare, bound, info, *,
     lib_ms = _time_ms(torch, library, flush, reps) if library else None
     nbytes, bound_ms, bound_by = bound(got)
     lib = f", library {lib_ms * 1e3:.1f} us" if library else ""
+    dev, kernels = "", None
+    if device:
+        kernels = _device_ms(torch, call, flush, device)
+        dev = (f", device {sum(kernels.values()) * 1e3:.1f} us ("
+               + ", ".join(f"{k} {v * 1e3:.1f}" for k, v in sorted(
+                   kernels.items(), key=lambda kv: -kv[1])) + ")")
     log(f"kernel {ctx}: {', '.join(f'{k} {v}' for k, v in info.items())}, "
-        f"{ms * 1e3:.1f} us (median of {reps}), plain "
+        f"{ms * 1e3:.1f} us (median of {reps}){dev}, plain "
         f"{plain_ms * 1e3:.1f} us{lib}, {nbytes} B moved, bound "
         f"{bound_ms * 1e3:.1f} us ({bound_by}), "
         f"{100 * bound_ms / ms:.1f}% of bound, max|err| {err:.3g}")
-    return dict(info, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
-                bytes=nbytes)
+    out = dict(info, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+               library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
+               bytes=nbytes)
+    if kernels is not None:
+        out.update(device_ms=sum(kernels.values()), device_kernels=kernels)
+    return out
 
 
 def _row(name, source, replaces, launches, results, main, **extra):
@@ -577,8 +678,10 @@ def _row(name, source, replaces, launches, results, main, **extra):
         "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
         "bound_by": m["bound_by"], "library_ms": m["library_ms"],
         "rows": m["rows"], **extra,
+        **({"device_ms": m["device_ms"]} if "device_ms" in m else {}),
         "shapes": {k: {kk: v[kk] for kk in ("rows", "ms", "plain_ms",
-                                            "library_ms", "bound_ms")}
+                                            "library_ms", "bound_ms",
+                                            "device_ms") if kk in v}
                    for k, v in results.items()},
     }
 
@@ -620,6 +723,9 @@ def scan_kernel_phase(torch, dev, state, launches, flush):
         wrapper = getattr(ops, KERNELS[kernel][0])
         names = list(prog.names)
         results = {}
+        # each call: the kernel, then the finishing pass over its partials
+        expect = {"filter_agg_kernel" if kernel == "filter_agg"
+                  else "groupby_kernel": 1, "reduce_partials_kernel": 1}
         for label, n in _sizes(n_total, state["rows"][kernel]):
             blk = from_numpy({c: lineitem[c][:n] for c in names},
                              bucket_capacity(n), dev)
@@ -640,7 +746,8 @@ def scan_kernel_phase(torch, dev, state, launches, flush):
                 torch, flush, f"{kernel} {label}",
                 lambda: wrapper(cols, mask, program=prog, tiling=tiling),
                 lambda: plain[kernel](cols, mask, program=prog),
-                _compare, bound, dict(rows=n, capacity=mask.numel()))
+                _compare, bound, dict(rows=n, capacity=mask.numel()),
+                device=expect)
             del blk, cols, mask
         # the all-masked block and (for grouped kernels) empty groups
         n = 1 << 16
@@ -675,6 +782,35 @@ def _prepass(lower, xops, m, bcols, bmask):
     return sk, spay
 
 
+def _join_variants(m, prog):
+    """Programs of the same join beside the main path's split one: all
+    predicates in slot 0 with no probe slot (the unsplit program: every
+    valid row searched), a probe predicate that rejects every row, one
+    that accepts every row (with all predicates in slot 0: the unsplit
+    work through the probe slot) and, where the query has a residual,
+    the residual alone."""
+    from repro_torch.exec.operators import mixed_radix_strides
+    from repro_torch.kernels.program import compile_program
+    key = {"t": "col", "name": m.probe_key}
+    zero = {"t": "lit", "value": 0, "kind": "num"}
+
+    def variant(probe_preds, preds):
+        return compile_program(
+            preds, [(fn, arg) for _, fn, arg in m.aggs],
+            group_cols=list(m.group_cols),
+            strides=mixed_radix_strides(list(m.sizes)),
+            n_groups=prog.n_groups, probe_preds=probe_preds)
+    out = {"unsplit": variant(None, m.probe_preds + m.preds),
+           # TPC-H keys are positive
+           "rejects all": variant([{"t": "cmp", "op": "<", "l": key,
+                                    "r": zero}], m.preds),
+           "accepts all": variant([{"t": "cmp", "op": ">", "l": key,
+                                    "r": zero}], m.probe_preds + m.preds)}
+    if m.preds:
+        out["residual only"] = variant([], m.preds)
+    return out
+
+
 def join_kernel_phase(torch, dev, state, launches, flush):
     import numpy as np
     from repro_torch.core.engine import QueryEngine
@@ -699,6 +835,10 @@ def join_kernel_phase(torch, dev, state, launches, flush):
         m = next(lower.match_fragment(p.op) for p in plan.pipelines.values()
                  if p.kernel == kind)
         prog, tiling = m.program, m.tiling
+        if not prog.has_probe_pred:
+            raise AssertionError(f"{q}: the join program has no probe "
+                                 "predicate")
+        variants = _join_variants(m, prog)
         bnames = sorted({m.build_key} | {c for c in m.payload
                                          if c in prog.names})
         nb = len(tables[build][m.build_key])
@@ -713,12 +853,12 @@ def join_kernel_phase(torch, dev, state, launches, flush):
         pnames = sorted({c for c in prog.names if c not in spay}
                         | {m.probe_key})
 
-        def call(cols, mask, keys=sk, pay=spay):
+        def call(cols, mask, keys=sk, pay=spay, prog=prog):
             return ops.fused_join_probe_agg(cols, mask, keys, pay,
                                             probe_key=m.probe_key,
                                             program=prog, tiling=tiling)
 
-        def plain(cols, mask, keys=sk, pay=spay):
+        def plain(cols, mask, keys=sk, pay=spay, prog=prog):
             return jp.fused_join_probe_agg_plain(cols, mask, keys, pay,
                                                  probe_key=m.probe_key,
                                                  program=prog)
@@ -726,33 +866,64 @@ def join_kernel_phase(torch, dev, state, launches, flush):
             blk = from_numpy({c: lineitem[c][:n] for c in pnames},
                              bucket_capacity(n), dev)
             cols, mask = blk.columns, blk.mask
-            # rows that hit the build side, and that pass the program
             pk = cols[m.probe_key]
             pos = torch.searchsorted(sk, pk).clamp(0, sk.numel() - 1)
             hit = (sk[pos] == pk) & mask & (pk != sentinel)
-            typed = for_columns(prog, cols, spay)
             jcols = dict(cols, **{c: v[pos] for c, v in spay.items()})
-            passed = hit & (eval_slot(typed, 0, jcols) != 0) \
-                if typed.has_pred else hit
 
-            def bound(got):
+            def counts(vp):
+                """Rows the kernel searches (valid, passing the probe
+                predicate), their hits, and the hits passing slot 0."""
+                typed = for_columns(vp, cols, spay)
+                searched = mask
+                if typed.has_probe_pred:
+                    searched = mask & (eval_slot(
+                        typed, typed.probe_slot, jcols) != 0)
+                found = hit & searched
+                passed = found & (eval_slot(typed, 0, jcols) != 0) \
+                    if typed.has_pred else found
+                return (int(searched.sum()), int(found.sum()),
+                        int(passed.sum()))
+
+            def bound(vp):
                 # the mask over the capacity, the key and the probe
                 # columns over the valid rows, the sorted keys and the
-                # payload once, the output; the program on the hits. The
-                # search's repeated L2 reads are not counted.
+                # payload once, the output; the program's probe predicate
+                # on the valid rows, the rest on the searched hits. The
+                # search's repeated L2 reads are not counted; the key and
+                # payload bytes are, though the kernel reads them for the
+                # searched rows only.
                 n_valid = int(mask.sum())
+                _, found, passed = counts(vp)
                 width = sum(cols[c].element_size() for c in pnames)
                 nbytes = mask.numel() + n_valid * width + sk.numel() * 8 \
                     + sum(v.numel() * v.element_size()
-                          for v in spay.values()) + got.numel() * 8
-                return _bound(nbytes, _program_work(
-                    prog, int(hit.sum()), int(passed.sum())))
+                          for v in spay.values())
+                return lambda got: _bound(nbytes + got.numel() * 8,
+                                          _program_work(vp, found, passed,
+                                                        n_valid))
+            searched, found, _ = counts(prog)
             results[f"{q} {label}"] = _hold(
                 torch, flush, f"{kind} {q} {label}",
                 lambda: call(cols, mask), lambda: plain(cols, mask),
-                _compare, bound, dict(rows=n, capacity=mask.numel(),
-                                      build_rows=nb, hits=int(hit.sum())))
-            del blk, cols, mask, pk, pos, hit, jcols, passed
+                _compare, bound(prog), dict(
+                    rows=n, capacity=mask.numel(), build_rows=nb,
+                    hits=int(hit.sum()), searched=searched,
+                    searched_hits=found),
+                device=JOIN_KERNELS)
+            if label == "main":
+                # the same rows through the other forms of the program
+                for name, vp in variants.items():
+                    searched, found, _ = counts(vp)
+                    results[f"{q} main {name}"] = _hold(
+                        torch, flush, f"{kind} {q} main {name}",
+                        lambda vp=vp: call(cols, mask, prog=vp),
+                        lambda vp=vp: plain(cols, mask, prog=vp),
+                        _compare, bound(vp), dict(
+                            rows=n, capacity=mask.numel(), build_rows=nb,
+                            searched=searched, searched_hits=found),
+                        device=JOIN_KERNELS)
+            del blk, cols, mask, pk, pos, hit, jcols
         # edge cases: an all-masked probe block, probe keys equal to the
         # sentinel, a build side with every key masked (no hits)
         n = 1 << 16
@@ -1126,28 +1297,15 @@ def sort_kernel_phase(torch, dev, state, launches, flush):
 
 # -- where the redesigned kernels' time goes ----------------------------------
 
-def _profile(torch, label, fn):
+def _profile(torch, label, fn, expect):
     """Device time of each CUDA kernel one call of ``fn`` launches
-    (torch.profiler, after a warm-up call), largest first."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    _sync(torch)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        _sync(torch)
-    rows = []
-    for ev in prof.key_averages():
-        us = getattr(ev, "device_time_total", None)
-        if us is None:
-            us = getattr(ev, "cuda_time_total", 0)
-        if us > 0 and "Memcpy" not in ev.key and "Memset" not in ev.key:
-            rows.append((us, ev.count, ev.key.split("(")[0]))
-    total = sum(r[0] for r in rows)
-    log(f"profile {label}: {total / 1e3:.4f} ms of device time in "
-        f"{sum(r[1] for r in rows)} launches")
-    for us, count, key in sorted(rows, reverse=True):
-        log(f"  {us / 1e3:9.4f} ms  x{count:<3d} {key[:70]}")
+    (:func:`_kernel_times`: it fails unless each kernel of ``expect``
+    launched), largest first."""
+    rows = _kernel_times(torch, fn, expect)
+    log(f"profile {label}: {sum(ms for ms, _ in rows.values()):.4f} ms of "
+        f"device time in {sum(n for _, n in rows.values()):g} launches")
+    for key, (ms, n) in sorted(rows.items(), key=lambda kv: -kv[1][0]):
+        log(f"  {ms:9.4f} ms  x{n:<3g} {key[:70]}")
 
 
 def profile_phase(torch, dev, state):
@@ -1159,14 +1317,16 @@ def profile_phase(torch, dev, state):
     from repro_torch.kernels import ops
     (keys, values, fns, mask), kw = state["sort_input"]
     _profile(torch, "sort_agg main", lambda: ops.fused_sort_agg(
-        keys, values, fns, mask, **kw))
+        keys, values, fns, mask, **kw),
+        {"radix_scatter_kernel": 1, "scan_apply_kernel": 1})
     g = get_config("granite-3-2b")
     rng = np.random.default_rng(1)
     q, k, v = (torch.from_numpy(rng.standard_normal(
         (h, 4096, g.head_dim_), dtype=np.float32)).to(dev, torch.bfloat16)
         for h in (g.n_heads, g.n_kv_heads, g.n_kv_heads))
     _profile(torch, "flash_attention granite S4096 causal bf16",
-             lambda: ops.flash_attention(q, k, v, causal=True))
+             lambda: ops.flash_attention(q, k, v, causal=True),
+             {"flash_wgmma_kernel": 1})
 
 
 # -- the kernels no query reaches ---------------------------------------------
@@ -1210,6 +1370,37 @@ def _ssd_flops(b, S, H, P, N, Q):
         flops += b * H * (2 * pairs * P + (c > 0) * 2 * L * N * P
                           + (c < nc - 1) * 2 * L * N * P)
     return flops
+
+
+def _ssd_executed(b, S, H, P, N, Q, sms):
+    """Operations the SSD kernel executes on the tensor cores: its
+    products at the granularity it runs them (64-row strips, 64-key
+    tiles, k-steps of 8; on the diagonal tile each 16-row warp stops at
+    its last row), C·Bᵀ once per (batch, chunk, strip, head group), each
+    product three times (the split TF32 operands)."""
+    from repro_torch.kernels.ssd_scan import head_group
+
+    def up8(v):
+        return -(-v // 8) * 8
+    nc, strips = -(-S // Q), -(-Q // 64)
+    groups = -(-H // head_group(b, nc, strips, H, sms))
+    flops = 0
+    for c in range(nc):
+        if c < nc - 1:                       # the chunk's own state
+            flops += b * H * 2 * N * P * up8(Q)
+        for st in range(strips):
+            s0 = st * 64
+            if c * Q + s0 >= S:
+                continue
+            tn = min(64, Q - s0)             # keys of the diagonal tile
+            flops += b * groups * 2 * 64 * (s0 + 64) * N       # C·Bᵀ
+            per_head = (s0 // 64) * 2 * 64 * 64 * P            # W·x
+            per_head += sum(2 * 16 * P * up8(min(tn, wm + 16))
+                            for wm in (0, 16, 32, 48))
+            if c > 0:                        # C · state
+                per_head += 2 * 64 * N * P
+            flops += b * H * per_head
+    return 3 * flops
 
 
 def _close(tol):
@@ -1263,10 +1454,10 @@ def _close_q6(got, want, ctx):
 
 
 def _case(kernel, label, call, plain, compare, bound, info, *,
-          library=None, reps=REPS):
+          library=None, reps=REPS, device=None):
     return dict(kernel=kernel, label=label, call=call, plain=plain,
                 compare=compare, bound=bound, info=info, library=library,
-                reps=reps)
+                reps=reps, device=device)
 
 
 def _standalone_cases(torch, dev, state):
@@ -1372,7 +1563,15 @@ def _standalone_cases(torch, dev, state):
             ("hymba b1 S4096", 1, S4k, hymba.n_ssm_heads,
              hymba.ssm_head_dim, hymba.ssm_state, hymba.ssm_chunk, False),
             ("ragged S1000", 1, 1000, *m, False),
-            ("mamba2 b8 S4096 mamba2 dt/A", 8, S4k, *m, True)]
+            ("mamba2 b8 S4096 mamba2 dt/A", 8, S4k, *m, True),
+            # the chunk-parallel split's edges at mamba2's widths: one
+            # chunk, chunk 1024 (four C·Bᵀ key blocks), S not a multiple
+            # of the chunk, one head (b·H below any head group)
+            ("one chunk b2 S200", 2, 200, *m, True),
+            ("chunk 1024 b2 S4096", 2, S4k, *m[:3], 1024, True),
+            ("chunk 1024 S3000", 1, 3000, *m[:3], 1024, False),
+            ("b1 H1 S1000 N16", 1, 1000, 1, m[1], 16, m[3], False)]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for label, b, S, H, P, N, Q, long_memory in ssds:
         x = normal((b, S, H, P), scale=0.5)
         if long_memory:
@@ -1386,16 +1585,24 @@ def _standalone_cases(torch, dev, state):
             A_log = normal((H,), scale=0.3)
         B, C = normal((b, S, N), scale=0.5), normal((b, S, N), scale=0.5)
         nbytes = 4 * (2 * b * S * H * P + b * S * H + H + 2 * b * S * N)
+        needed = _ssd_flops(b, S, H, P, N, min(Q, S))
         cases.append(_case(
             "ssd_scan", label,
             lambda a=(x, dt, A_log, B, C), Q=Q: ops.ssd_scan(*a, chunk=Q),
             lambda a=(x, dt, A_log, B, C), Q=Q: ssd.ssd_scan_plain(
                 *a, chunk=Q),
             _close_to_max,
-            lambda got, nb=nbytes, f=_ssd_flops(b, S, H, P, N, Q):
-                _bound(nb, f, FP32_FLOPS),
+            lambda got, nb=nbytes, f=needed: _bound(nb, f, TF32_FLOPS),
             dict(rows=b * S, x=[b, S, H, P], N=N, chunk=Q,
-                 draw="mamba2 dt/A" if long_memory else "unit")))
+                 draw="mamba2 dt/A" if long_memory else "unit",
+                 needed_flop=needed,
+                 executed_flop=_ssd_executed(b, S, H, P, N, min(Q, S),
+                                             sms),
+                 bound_cuda_cores_ms=_bound(nbytes, needed,
+                                            FP32_FLOPS)[1]),
+            # the three phases; the state pass only past one chunk
+            device={"chunk_state_kernel": 1, "chunk_out_kernel": 1,
+                    **({"state_pass_kernel": 1} if S > Q else {})}))
 
     # TPC-H Q6 over the SF 1 lineitem columns, at the reference's types
     li = state["lineitem"]
@@ -1510,7 +1717,7 @@ def standalone_kernel_phase(torch, ext, dev, state, flush):
     for case in cases:
         info = case["info"]
         if "executed_flop" in info:
-            log(f"kernel flash_attention {case['label']}: executed "
+            log(f"kernel {case['kernel']} {case['label']}: executed "
                 f"{info['executed_flop'] / 1e9:.3f} GFLOP against "
                 f"{info['needed_flop'] / 1e9:.3f} needed "
                 f"({info['executed_flop'] / info['needed_flop']:.3f}×)")
@@ -1519,7 +1726,7 @@ def standalone_kernel_phase(torch, ext, dev, state, flush):
             torch, flush, f"{case['kernel']} {case['label']}",
             case["call"], case["plain"], case["compare"], case["bound"],
             case["info"], got=got, reps=case["reps"],
-            library=case["library"])
+            library=case["library"], device=case["device"])
     main = {"flash_attention": "granite S4096 causal bf16",
             "ssd_scan": "mamba2 b8 S4096", "filter_agg": "Q6 SF1 lineitem",
             "groupby_onehot": "Q1 K6"}

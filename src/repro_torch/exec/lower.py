@@ -22,7 +22,8 @@ one-pass vectorized worker loop):
   ``join(probe=[filter…]→scan, build=[filter…]→scan) → [filter…] →
   partial_agg`` (direct)
       → :func:`repro_torch.kernels.ops.fused_join_probe_agg`: the build
-        side sorted by key in a torch prepass, then one kernel probes,
+        side sorted by key in a torch prepass, then one kernel filters
+        on the probe side's own predicates, probes the survivors,
         gathers the payload, filters and aggregates (TPC-H Q12/Q14/Q19).
 
   ``semijoin_probe`` over ``[filter…]→scan`` (a probe-side scan carrying
@@ -347,9 +348,9 @@ def _match_join(op, join, preds, needed, group_cols, sizes, aggs, K):
             return None, f"columns {missing} absent from build scan"
     try:
         program = compile_program(
-            probe_preds + preds, [(fn, arg) for _, fn, arg in aggs],
+            preds, [(fn, arg) for _, fn, arg in aggs],
             group_cols=group_cols, strides=mixed_radix_strides(sizes),
-            n_groups=K)
+            n_groups=K, probe_preds=probe_preds)
     except ProgramError as e:
         return None, f"expression not runnable in a kernel: {e}"
     tiling = roofline.join_probe_tiling(
@@ -490,8 +491,10 @@ def _lower_join_probe(m: Match) -> Lowered:
     """Build side: its predicates on the generic ops, then the torch sort
     prepass (``operators.sort_build_side``, outside the kernel as the
     reference sorts in XLA). Probe side: one kernel call running the
-    probe and residual predicates (``probe_preds + preds``), the group
-    id and the aggregates over the probe rows and the hits' payload."""
+    probe predicates (``probe_preds``, the program's probe-predicate
+    slot) before its key search, then the residual predicates
+    (``preds``), the group id and the aggregates over the hits and
+    their payload."""
     build_pred = _compile_pred(m.build_preds)
     program, tiling = m.program, m.tiling
     K = program.n_groups

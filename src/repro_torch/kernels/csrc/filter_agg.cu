@@ -8,7 +8,7 @@
 // grid-stride (neighbouring threads on neighbouring rows, so loads
 // coalesce), keeps the A accumulators in registers, reduces each CTA
 // by warp shuffles and a shared-memory pass over the warps, and writes
-// per-CTA partials (ctas, A); a second pass folds them in CTA order,
+// per-CTA partials (ctas, A); a second pass folds them in a fixed order,
 // so the result repeats run to run. The TPU kernel's sequential grid
 // carried the accumulator across steps; blocks here run in no order,
 // hence the two passes.

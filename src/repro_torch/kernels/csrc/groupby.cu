@@ -13,7 +13,7 @@
 // scan_agg.cuh): shared atomicAdd for sums, counts and the presence
 // column, a compare-and-swap loop for min/max that follows jnp.minimum /
 // jnp.maximum (a NaN wins); absent groups keep 0 / +inf / -inf. The
-// tiles go to per-CTA partials that a second pass folds in CTA order.
+// tiles go to per-CTA partials that a second pass folds in a fixed order.
 // What bounds it: HBM bytes (Q1: 45 B/row) as long as the shared atomics
 // keep up. With Q1's K = 6 every warp's rows land on
 // the same few addresses, so the atomics serialize: the known slow point

@@ -3,7 +3,7 @@
 // of the postfix expression programs built by kernels/program.py, the
 // f64 identities and combiners, the per-row folds into the ungrouped
 // accumulators and the grouped (K, A+1) tile, and the fixed-order
-// second pass.
+// second pass (contiguous runs of the CTAs' partials, then a tree).
 //
 // The join kernel reads some program columns on the build side, at the
 // probe row's hit position: the loads and folds take a template flag,
@@ -261,33 +261,64 @@ __device__ __forceinline__ void write_tile(const double* tile, int KW,
   for (int i = threadIdx.x; i < KW; i += blockDim.x) mine[i] = tile[i];
 }
 
-// Second pass: out[i] = fold over the CTAs' partials of element i, in
-// CTA order, so the result repeats run to run. Element i belongs to
+// Second pass: out[i] = the fold over the CTAs' partials of element i in
+// a fixed order, so the result repeats run to run. A block of 256
+// threads takes ``lanes`` consecutive elements (32, or the width rounded
+// up to a power of two where it is narrower) and splits the partials
+// into 256 / lanes contiguous runs: thread (run y, element x) folds run
+// y in CTA order, four loads in flight (neighbouring threads read
+// neighbouring elements), then a fixed tree in shared memory folds the
+// runs, y with y + s for s = runs/2, ..., 1. Element i belongs to
 // aggregate column i % row_len; a column past the aggregates is the
 // presence count (a sum).
-__global__ void reduce_partials_kernel(const double* __restrict__ partials,
-                                       int n_parts, int64_t width,
-                                       int row_len,
-                                       const int* __restrict__ fns,
-                                       int n_aggs,
-                                       double* __restrict__ out) {
-  const int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-  if (i >= width) return;
-  const int col = (int)(i % row_len);
-  const int fn = col < n_aggs ? __ldg(fns + col) : (int)SUM;
+constexpr int kReduceThreads = 256;
+
+__global__ void __launch_bounds__(kReduceThreads)
+reduce_partials_kernel(const double* __restrict__ partials, int n_parts,
+                       int64_t width, int row_len,
+                       const int* __restrict__ fns, int n_aggs, int lanes,
+                       double* __restrict__ out) {
+  __shared__ double red[kReduceThreads];
+  const int x = threadIdx.x % lanes, y = threadIdx.x / lanes;
+  const int runs = kReduceThreads / lanes;
+  const int64_t i = blockIdx.x * (int64_t)lanes + x;
+  const bool live = i < width;
+  int fn = SUM;
+  if (live) {
+    const int col = (int)(i % row_len);
+    fn = col < n_aggs ? __ldg(fns + col) : (int)SUM;
+  }
+  const int per = (n_parts + runs - 1) / runs;
+  const int lo = min(y * per, n_parts), hi = min(lo + per, n_parts);
   double v = identity(fn);
-  for (int p = 0; p < n_parts; ++p)
-    v = combine(fn, v, partials[(int64_t)p * width + i]);
-  out[i] = v;
+  if (live) {
+    int p = lo;
+    for (; p + 4 <= hi; p += 4) {
+      const double* q = partials + (int64_t)p * width + i;
+      const double a = q[0], b = q[width], c = q[2 * width],
+                   d = q[3 * width];
+      v = combine(fn, combine(fn, combine(fn, combine(fn, v, a), b), c), d);
+    }
+    for (; p < hi; ++p) v = combine(fn, v, partials[(int64_t)p * width + i]);
+  }
+  red[threadIdx.x] = v;
+  for (int s = runs / 2; s > 0; s >>= 1) {
+    __syncthreads();
+    if (y < s)
+      red[threadIdx.x] =
+          combine(fn, red[threadIdx.x], red[threadIdx.x + s * lanes]);
+  }
+  if (y == 0 && live) out[i] = red[threadIdx.x];
 }
 
 inline int reduce_partials(const double* partials, int n_parts,
                            int64_t width, int row_len, const int* fns,
                            int n_aggs, double* out, cudaStream_t stream) {
-  const int threads = 128;
-  const int blocks = (int)((width + threads - 1) / threads);
-  reduce_partials_kernel<<<blocks, threads, 0, stream>>>(
-      partials, n_parts, width, row_len, fns, n_aggs, out);
+  int lanes = 1;
+  while (lanes < 32 && lanes < width) lanes <<= 1;
+  const int blocks = (int)((width + lanes - 1) / lanes);
+  reduce_partials_kernel<<<blocks, kReduceThreads, 0, stream>>>(
+      partials, n_parts, width, row_len, fns, n_aggs, lanes, out);
   return (int)cudaGetLastError();
 }
 

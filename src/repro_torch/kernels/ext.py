@@ -74,20 +74,20 @@ _P, _I, _L, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, \
     ctypes.c_uint, ctypes.c_float
 # C signature of each library's launch function: columns, mask and rows,
 # program, [K,] partials and output, grid, stream (the join adds the
-# gathered-column mask, the probe key and the sorted build keys; the
-# Bloom probe takes the key, mask, words, bits, k and its output; the
-# sort kernels take the mask and rows, key columns, their output lanes
-# and positions, the radix block rows, the radix scratch and its bytes,
-# then the sort-aggregate's values, scan scratch and outputs, or the
-# top-k's columns, limit and mask; the fixed-layout and model kernels
-# take their tensors, shapes and scalars)
+# gathered-column mask, the probe key, the sorted build keys and the
+# probe-predicate slot; the Bloom probe takes the key, mask, words, bits,
+# k and its output; the sort kernels take the mask and rows, key
+# columns, their output lanes and positions, the radix block rows, the
+# radix scratch and its bytes, then the sort-aggregate's values, scan
+# scratch and outputs, or the top-k's columns, limit and mask; the
+# fixed-layout and model kernels take their tensors, shapes and scalars)
 _ARGTYPES = {
     "filter_agg": [_P, _P, _I, _P, _L, _P, _P, _P, _P, _I, _P, _P, _I, _I,
                    _P],
     "groupby": [_P, _P, _I, _P, _L, _P, _P, _P, _P, _I, _I, _P, _P, _I, _I,
                 _P],
     "join_probe": [_P, _P, _I, _U, _P, _L, _P, _I, _P, _L, _P, _P, _P, _P,
-                   _I, _I, _P, _P, _I, _I, _P],
+                   _I, _I, _I, _P, _P, _I, _I, _P],
     "bloom": [_P, _I, _P, _L, _P, _L, _I, _P, _I, _I, _P],
     "sort_agg": [_P, _L, _P, _I, _P, _P, _I, _P, _P, _I, _P, _L, _P, _P,
                  _P, _P, _P, _P],
@@ -98,7 +98,7 @@ _ARGTYPES = {
     "groupby_onehot": [_P, _P, _L, _I, _I, _P, _P, _I, _P],
     "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
                         _P],
-    "ssd_scan": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "ssd_scan": [_P] * 10 + [_I] * 7 + [_P],
 }
 
 _lock = threading.Lock()

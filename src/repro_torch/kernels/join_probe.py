@@ -7,11 +7,14 @@ The build side comes sorted by key, masked rows last under the int64
 sentinel, with its payload in the same order (the prepass of
 ``exec.lower``, as ``operators.make_pk_join_probe`` sorts it). Each probe
 row lower-bound searches the sorted keys; it hits when the key found
-equals its own, the row is valid and its key is not the sentinel. A hit
-runs the expression program (probe predicates, residual predicates,
-group id, aggregate arguments) with the payload read at the hit's
-position, and folds into the (A,) accumulator (ungrouped) or the
-(K, A+1) tile with trailing presence counts; identities as
+equals its own, the row is valid and its key is not the sentinel. A
+program with a probe-predicate slot (``Program.probe_slot``: the probe
+side's own filters) has the kernel run it first, so only the rows it
+passes are searched (queued per CTA in row order, 256 at a time). A hit
+runs the rest of the expression program (the residual predicates, group
+id, aggregate arguments) with the payload read at the hit's position,
+and folds into the (A,) accumulator (ungrouped) or the (K, A+1) tile
+with trailing presence counts; identities as
 ``segmented_minmax.init_group_tile``.
 
 :func:`fused_join_probe_agg_cuda` launches ``csrc/join_probe.cu``;
@@ -26,11 +29,12 @@ import ctypes
 
 import torch
 
-from repro_torch.analysis.roofline import JOIN_MAX_BUILD_ROWS
+from repro_torch.analysis.roofline import JOIN_MAX_BUILD_ROWS, THREADS
 from repro_torch.kernels import ext
 from repro_torch.kernels.common import ACC_DTYPE, KEY_DTYPE
 from repro_torch.kernels.filter_agg import fused_filter_agg_plain
-from repro_torch.kernels.program import DTYPE_CODES, Program, for_columns
+from repro_torch.kernels.program import DTYPE_CODES, Program, eval_slot, \
+    for_columns
 from repro_torch.kernels.segmented_minmax import grouped_plain
 
 NAME = "join_probe_agg"
@@ -63,6 +67,8 @@ def fused_join_probe_agg_plain(probe_cols: dict, probe_mask, sorted_keys,
     for name, g in zip(prog.names, prog.gathered):
         if g:
             cols[name] = sorted_payload[name][pos_c]
+    if prog.has_probe_pred:
+        hit = hit & (eval_slot(prog, prog.probe_slot, cols) != 0)
     if prog.n_groups:
         return grouped_plain(cols, hit, prog)
     return fused_filter_agg_plain(cols, hit, program=prog)
@@ -88,6 +94,10 @@ def fused_join_probe_agg_cuda(probe_cols: dict, probe_mask, sorted_keys,
     code, consts, slots, fns = prog.device_arrays(dev)
     A, K = prog.n_aggs, prog.n_groups
     n = int(probe_mask.shape[0])
+    if n >= 2**31 or tiling.block_rows != THREADS:
+        raise ValueError(f"{n} probe rows in blocks of {tiling.block_rows}: "
+                         f"the kernel takes fewer than 2^31 rows in blocks "
+                         f"of {THREADS}")
     ctas = ext.grid_ctas(tiling, n, dev)
     shape = (K, A + 1) if K else (A,)
     partials = torch.empty((ctas,) + shape, dtype=ACC_DTYPE, device=dev)
@@ -98,7 +108,8 @@ def fused_join_probe_agg_cuda(probe_cols: dict, probe_mask, sorted_keys,
                                                         ctypes.c_void_p),
         n_cols, gathered, probe_mask.data_ptr(), n, key.data_ptr(),
         DTYPE_CODES[key.dtype], sk.data_ptr(), B, code.data_ptr(),
-        consts.data_ptr(), slots.data_ptr(), fns.data_ptr(), A, K,
+        consts.data_ptr(), slots.data_ptr(), fns.data_ptr(), A,
+        prog.probe_slot if prog.has_probe_pred else -1, K,
         partials.data_ptr(), out.data_ptr(), ctas, tiling.block_rows,
         stream)
     ext.check(lib, rc, NAME)

@@ -30,8 +30,12 @@ blocks the kernel is given).
 A program holds the slots of one fused kernel call: slot 0 is the
 predicate (empty: every valid row passes), slot 1 the mixed-radix group
 id (empty for the ungrouped kernel), then one slot per aggregate
-argument (empty for ``count``). Column values must stay below 2**53 to
-be exact in float64; TPC-H keys stay below 6.1e9 up to SF 1000.
+argument (empty for ``count``). A join program may add one slot after
+them, the probe predicate (``probe_preds``: the conjunction of the
+probe side's own filters, which read probe columns only); the join
+kernel runs it before its key search, and slot 0 then holds only the
+residual predicates over the joined row. Column values must stay below
+2**53 to be exact in float64; TPC-H keys stay below 6.1e9 up to SF 1000.
 
 :func:`eval_slot` is the plain torch evaluation of the same program,
 vectorised with a stack of tensors: the kernels' plain versions use it.
@@ -87,6 +91,8 @@ class Program:
     n_groups: int                # 0: ungrouped
     depth: int                   # max stack depth the program needs
     const_int: tuple[bool, ...] = ()   # literal was an int (weak int)
+    # a join program's probe-predicate slot follows the aggregates
+    probe_pred: bool = False
     # set by specialise(): the column dtypes the program is typed for,
     # and which columns the join kernel reads on the build side
     dtypes: tuple | None = None
@@ -103,6 +109,21 @@ class Program:
     @property
     def has_pred(self) -> bool:
         return self.slots[1] > self.slots[0]
+
+    @property
+    def probe_slot(self) -> int | None:
+        """The probe-predicate slot, if the program has one."""
+        return 2 + self.n_aggs if self.probe_pred else None
+
+    @property
+    def has_probe_pred(self) -> bool:
+        s = self.probe_slot
+        return s is not None and self.n_ops(s) > 0
+
+    def slot_columns(self, s: int) -> set[str]:
+        lo, hi = self.slot_range(s)
+        return {self.names[arg] for op, arg in self.code[lo:hi].tolist()
+                if op == COL}
 
     def slot_range(self, s: int) -> tuple[int, int]:
         return int(self.slots[s]), int(self.slots[s + 1])
@@ -124,6 +145,11 @@ class Program:
                              f"not {key[0]}")
         typed = self._variants.get(key)
         if typed is None:
+            if self.has_probe_pred and any(
+                    g for n, g in zip(self.names, key[1])
+                    if n in self.slot_columns(self.probe_slot)):
+                raise ValueError("the probe predicate reads a build-side "
+                                 "column")
             code, consts, slots = _type_pass(self, key[0])
             typed = dataclasses.replace(
                 self, code=code, consts=consts, slots=slots,
@@ -230,21 +256,27 @@ def _depth(code: list[int]) -> int:
 def compile_program(preds: list[dict], aggs: list, *,
                     group_cols: list[str] | None = None,
                     strides: list[int] | None = None,
-                    n_groups: int = 0) -> Program:
+                    n_groups: int = 0,
+                    probe_preds: list[dict] | None = None) -> Program:
     """Compile a fused kernel's expressions.
 
     ``preds``: predicate dicts, conjoined; ``aggs``: ``(fn, arg dict or
     None)`` pairs; ``group_cols``/``strides``: the mixed-radix group id
-    sum(trunc(col) * stride), as ``exec.lower`` builds it. Raises
-    :class:`ProgramError` with a miss reason for what the kernel cannot
-    run.
+    sum(trunc(col) * stride), as ``exec.lower`` builds it;
+    ``probe_preds`` (a join's probe-side filters, conjoined; None: no
+    probe-predicate slot): the slot the join kernel runs before its key
+    search. Raises :class:`ProgramError` with a miss reason for what the
+    kernel cannot run.
     """
     em = _Emitter()
     bounds = [0]
-    if preds:
-        em.expr(preds[0] if len(preds) == 1 else
-                {"t": "and", "terms": list(preds)})
-    bounds.append(len(em.code) // 2)
+
+    def conj(ps):
+        if ps:
+            em.expr(ps[0] if len(ps) == 1 else
+                    {"t": "and", "terms": list(ps)})
+        bounds.append(len(em.code) // 2)
+    conj(preds)
     for i, (c, s) in enumerate(zip(group_cols or [], strides or [])):
         em.col(c)
         em.op(TRUNC)
@@ -263,6 +295,8 @@ def compile_program(preds: list[dict], aggs: list, *,
         elif fn != "count":
             raise ProgramError(f"aggregate {fn!r} has no argument")
         bounds.append(len(em.code) // 2)
+    if probe_preds is not None:
+        conj(probe_preds)
     # every slot leaves exactly one value on the stack
     for s in range(len(bounds) - 1):
         lo, hi = bounds[s], bounds[s + 1]
@@ -279,7 +313,8 @@ def compile_program(preds: list[dict], aggs: list, *,
                    np.asarray(em.consts or [0.0], np.float64),
                    np.asarray(bounds, np.int32),
                    tuple(fn for fn, _ in aggs), int(n_groups), depth,
-                   tuple(em.const_int) or (False,))
+                   tuple(em.const_int) or (False,),
+                   probe_pred=probe_preds is not None)
 
 
 def _depth_net(code: list[int]) -> int:
@@ -400,7 +435,7 @@ def eval_slot(prog: Program, s: int, cols: dict) -> torch.Tensor:
     lo, hi = prog.slot_range(s)
     stack: list[torch.Tensor] = []
     consts = prog.consts
-    ref = cols[prog.names[0]] if prog.names else None
+    ref = next(iter(cols.values()), None)
     for op, arg in prog.code[lo:hi].tolist():
         if op == COL:
             stack.append(_f64(cols[prog.names[arg]]))

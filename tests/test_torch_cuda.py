@@ -105,6 +105,51 @@ def test_kernel_matches_plain(session, query, capacity):
     np.testing.assert_allclose(g, w, **TOL)
 
 
+def _nested_sum(names, op="+"):
+    """c0 op (c1 op (c2 op ...)): the postfix program pushes every column
+    before its first operator, a stack as deep as there are columns."""
+    e = _col(names[-1])
+    for n in reversed(names[:-1]):
+        e = {"t": "bin", "op": op, "l": _col(n), "r": e}
+    return e
+
+
+@pytest.mark.parametrize("depth", [3, 6, 11, 15])
+@pytest.mark.parametrize("grouped", [False, True])
+def test_interpreter_stack_depths_match_plain(session, depth, grouped):
+    """The interpreter's stack at each depth up to the column limit
+    against the plain version, in the predicate and the aggregate
+    arguments."""
+    rng = np.random.default_rng(depth + grouped)
+    dev = torch.device("cuda", 0)
+    n = 1 << 16
+    names = [f"c{i}" for i in range(depth)]
+    cols = {c: torch.from_numpy(rng.normal(size=n)).to(dev) for c in names}
+    cols["g"] = torch.from_numpy(rng.integers(0, 4, n).astype(
+        np.int32)).to(dev)
+    pred = {"t": "cmp", "op": ">", "l": _nested_sum(names), "r": _lit(0)}
+    aggs = [("sum", _nested_sum(names, "*")), ("count", None),
+            ("max", _nested_sum(names, "-"))]
+    prog = compile_program([pred], aggs,
+                           group_cols=["g"] if grouped else None,
+                           strides=[1] if grouped else None,
+                           n_groups=4 if grouped else 0)
+    assert prog.depth == depth
+    mask = torch.from_numpy(rng.random(n) < 0.9).to(dev)
+    kernel = "segmented_minmax" if grouped else "filter_agg"
+    tiling = (roofline.groupby_tiling(kernel, n_cols=depth + 1, n_aggs=3,
+                                      n_groups=4) if grouped
+              else roofline.filter_agg_tiling(n_cols=depth, n_aggs=3))
+    wrapper, plain = WRAPPERS[kernel]
+    got = wrapper(cols, mask, program=prog, tiling=tiling)
+    want = plain(cols, mask, program=prog)
+    torch.cuda.synchronize()
+    g, w = got.cpu().numpy(), want.cpu().numpy()
+    if grouped:
+        np.testing.assert_array_equal(g[:, -1], w[:, -1])
+    np.testing.assert_allclose(g, w, **TOL)
+
+
 @pytest.mark.parametrize("query", sorted(SQLS))
 def test_query_on_the_card_equals_the_oracle(session, query):
     s, catalog, lineitem = session
@@ -178,6 +223,53 @@ def test_join_kernel_matches_plain(session, capacity, n_groups):
     g, w = got.cpu().numpy(), want.cpu().numpy()
     if n_groups:
         np.testing.assert_array_equal(g[:, -1], w[:, -1])
+    np.testing.assert_allclose(g, w, **TOL)
+
+
+# probe-side predicates on the probe block of _join_block (d in [0, 100)):
+# one that rejects every row, one that accepts every row, a selective one;
+# the residual reads the payload
+_PROBE_PREDS = {
+    "rejects all": [{"t": "cmp", "op": "<", "l": _col("d"), "r": _lit(0)}],
+    "accepts all": [{"t": "cmp", "op": ">=", "l": _col("d"),
+                     "r": _lit(0)}],
+    "selective": [{"t": "cmp", "op": "<", "l": _col("d"), "r": _lit(7)}],
+    "residual only": [],
+}
+
+
+@pytest.mark.parametrize("capacity", [1024, 1 << 16])
+@pytest.mark.parametrize("n_groups", [0, 5])
+@pytest.mark.parametrize("probe", sorted(_PROBE_PREDS))
+def test_join_kernel_probe_predicate_matches_plain(session, capacity,
+                                                   n_groups, probe):
+    """The probe-predicate slot: the kernel runs it before the key search
+    (none of a rejected row's key, search or payload is read), and the
+    result equals the plain version's, where the slot is applied after
+    the search."""
+    probe_cols, pmask, sk, pay = _join_block(capacity,
+                                             seed=capacity + n_groups + 7)
+    aggs = [("sum", {"t": "bin", "op": "*", "l": _col("x"), "r": _col("q")}),
+            ("count", None), ("max", _col("q"))]
+    prog = compile_program(
+        [{"t": "cmp", "op": ">", "l": _col("q"), "r": _lit(-0.5)}], aggs,
+        group_cols=["g"] if n_groups else None,
+        strides=[1] if n_groups else None, n_groups=n_groups,
+        probe_preds=_PROBE_PREDS[probe])
+    tiling = roofline.join_probe_tiling(n_cols=3, n_payload=2, n_aggs=3,
+                                        n_groups=n_groups)
+    before = ext.launches().get("join_probe_agg", 0)
+    got = ops.fused_join_probe_agg(probe_cols, pmask, sk, pay,
+                                   probe_key="k", program=prog,
+                                   tiling=tiling)
+    want = jp.fused_join_probe_agg_plain(probe_cols, pmask, sk, pay,
+                                         probe_key="k", program=prog)
+    torch.cuda.synchronize()
+    assert ext.launches().get("join_probe_agg", 0) == before + 1
+    g, w = got.cpu().numpy(), want.cpu().numpy()
+    if n_groups:
+        np.testing.assert_array_equal(g[:, -1], w[:, -1])
+        assert (g[:, -1].sum() == 0) == (probe == "rejects all")
     np.testing.assert_allclose(g, w, **TOL)
 
 
@@ -549,7 +641,17 @@ def test_flash_attention_bf16_tensor_cores_within_half_ulp(
 @pytest.mark.parametrize("draw", ["unit", "mamba2"])
 @pytest.mark.parametrize("b,S,H,N,chunk", [(2, 1000, 3, 128, 256),
                                            (1, 256, 4, 16, 64),
-                                           (1, 100, 2, 32, 256)])
+                                           (1, 100, 2, 32, 256),
+                                           # one chunk, S below a strip
+                                           (2, 40, 3, 64, 256),
+                                           # chunk 1024: four key blocks
+                                           (1, 2048, 2, 128, 1024),
+                                           # S not a multiple of 1024
+                                           (2, 1500, 3, 64, 1024),
+                                           # one head: b·H below a group
+                                           (1, 700, 1, 16, 128),
+                                           # chunks not a multiple of 64
+                                           (2, 333, 5, 32, 100)])
 def test_ssd_scan_kernel_matches_plain(card, b, S, H, N, chunk, draw):
     """``unit``: the reference's test draw (dt near 0.8, A near -1, a
     memory of a few tokens); ``mamba2``: mamba2-130m's dynamics (dt
@@ -574,6 +676,11 @@ def test_ssd_scan_kernel_matches_plain(card, b, S, H, N, chunk, draw):
     want = ssd.ssd_scan_plain(x, dt, A_log, B, C, chunk=chunk)
     err = (got - want).abs().max().item()
     assert err / (want.abs().max().item() + 1e-9) < 5e-5
+
+
+def test_ssd_scan_runs_on_the_tensor_cores(card):
+    """The SSD library's SASS holds TF32 tensor-core instructions."""
+    assert ext.sass("ssd_scan").count("HMMA") > 0
 
 
 def test_model_kernel_wrappers_refuse_what_the_kernels_do_not_take(card):

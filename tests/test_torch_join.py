@@ -8,6 +8,7 @@ within rtol = atol = 1e-9 (the reference's row parity tolerance); the
 kernel's presence counts exactly. Queries run at SF 0.01 on the port's
 CPU path (``device="cpu"``: the kernels' plain versions)."""
 
+import dataclasses
 import threading
 
 import jax.numpy as jnp
@@ -25,6 +26,7 @@ from repro.kernels.join_probe import fused_join_probe_agg as ref_join_kernel
 import repro_torch.api as port_api
 from repro_torch.core import CoordinatorConfig
 from repro_torch.core.engine import QueryEngine, _op_kinds
+from repro_torch.exec import lower as port_lower
 from repro_torch.exec import operators as port_ops
 from repro_torch.exec.batch import bucket_capacity
 from repro_torch.exec.batch import from_numpy as port_from_numpy
@@ -32,7 +34,8 @@ from repro_torch.exec.expr import expr_from_dict as port_from_dict
 from repro_torch.exec.operators import mixed_radix_strides
 from repro_torch.kernels import bloom
 from repro_torch.kernels import join_probe as jp
-from repro_torch.kernels.program import compile_program
+from repro_torch.kernels.program import compile_program, eval_slot, \
+    for_columns
 from repro_torch.sql import oracle
 from repro_torch.sql.logical import Binder
 from repro_torch.sql.parser import parse
@@ -453,3 +456,157 @@ def test_q12_as_a_repartition_join(sessions, strategy):
     _assert_same_rows(res.fetch(port.store),
                       _oracle(catalog, tables, QUERIES["q12"]),
                       f"q12 {strategy} vs oracle")
+
+
+# -- the probe predicate before the search -------------------------------------
+
+def _filter_search_residual(prog, pcols, pmask, sk, spay, probe_key):
+    """The kernel's order, step by step: the probe predicate on the valid
+    rows, then the search and the residual (the plain version, with the
+    probe slot dropped) over the rows it passes only."""
+    typed = for_columns(prog, pcols, spay)
+    live = pmask
+    if typed.has_probe_pred:
+        live = pmask & (eval_slot(typed, typed.probe_slot, pcols) != 0)
+    rows = torch.nonzero(live).flatten()
+    sub = {c: v[rows] for c, v in pcols.items()}
+    residual = dataclasses.replace(prog, probe_pred=False, _device={},
+                                   _variants={})
+    return jp.fused_join_probe_agg_plain(
+        sub, torch.ones(len(rows), dtype=torch.bool), sk, spay,
+        probe_key=probe_key, program=residual), int(live.sum())
+
+
+def _reference_join(m, rp, rpm, rb, rbm, n_groups):
+    """The reference's prepass and kernel (interpret mode) for the port's
+    match ``m``: its kernel predicate is the probe and residual
+    predicates together, evaluated after the search."""
+    bk = jnp.where(rbm, rb[m.build_key].astype(jnp.int64), SENTINEL)
+    order = jnp.argsort(bk)
+    rpay = {c: rb[c][order] for c in m.payload if c not in rp}
+    _, aggs = ref_lower._agg_closures(m.aggs)
+    return np.asarray(ref_join_kernel(
+        rp, rpm, bk[order], rpay, probe_key=m.probe_key,
+        pred=ref_lower._compile_pred(m.probe_preds + m.preds),
+        gid_fn=(ref_lower._gid_fn(list(m.group_cols), list(m.sizes))
+                if n_groups else None),
+        aggs=aggs, n_groups=n_groups, block=512, interpret=True))
+
+
+def _assert_join_result(got, want, ctx):
+    got = got.numpy()
+    assert got.shape == want.shape, ctx
+    if got.ndim == 2:
+        np.testing.assert_array_equal(got[:, -1], want[:, -1], err_msg=ctx)
+    np.testing.assert_allclose(got, want, err_msg=ctx, **TOL)
+
+
+@pytest.mark.parametrize("query,build", [("q12", "orders"), ("q14", "part"),
+                                         ("q19", "part")])
+def test_join_split_matches_pallas(sessions, query, build):
+    """Q12's, Q14's and Q19's join programs as the port lowers them: the
+    probe side's filters in the probe-predicate slot, the residual in
+    slot 0. Run in the kernel's order (probe predicate, then search and
+    residual on the survivors), through the plain version of the split
+    program, and as one unsplit program, each equals the reference's
+    kernel in interpret mode on SF 0.01 lineitem rows."""
+    _, port, catalog, rec, tables = sessions
+    eng = QueryEngine(port.store, catalog, platform=port.platform,
+                      handler=rec)
+    plan = eng.plan_sql(QUERIES[query])
+    m = next(port_lower.match_fragment(p.op)
+             for p in plan.pipelines.values()
+             if p.kernel == "join_probe_agg")
+    prog = m.program
+    assert prog.has_probe_pred and m.probe_preds
+    assert prog.has_pred == bool(m.preds)
+    K = prog.n_groups
+    n = 16384
+    li, bt = tables["lineitem"], tables[build]
+    payload = [c for c in m.payload if c in prog.names]
+    pnames = sorted({c for c in prog.names if c not in payload}
+                    | {m.probe_key})
+    bnames = sorted({m.build_key} | set(payload))
+    (rp, rpm), (pp, ppm) = _both({c: li[c][:n] for c in pnames}, n)
+    nb = len(bt[m.build_key])
+    (rb, rbm), (pb, pbm) = _both({c: bt[c] for c in bnames}, nb)
+    assert not m.build_preds
+    want = _reference_join(m, rp, rpm, rb, rbm, K)
+    sk, order = port_ops.sort_build_side(pb, pbm, m.build_key)
+    spay = {c: pb[c][order] for c in payload if c not in pp}
+    ordered, searched = _filter_search_residual(prog, pp, ppm, sk, spay,
+                                                m.probe_key)
+    assert 0 < searched < n // 10
+    _assert_join_result(ordered, want, f"{query} probe predicate first")
+    _assert_join_result(jp.fused_join_probe_agg_plain(
+        pp, ppm, sk, spay, probe_key=m.probe_key, program=prog), want,
+        f"{query} split program")
+    unsplit = compile_program(
+        m.probe_preds + m.preds, [(f, a) for _, f, a in m.aggs],
+        group_cols=list(m.group_cols),
+        strides=mixed_radix_strides(list(m.sizes)), n_groups=K)
+    assert not unsplit.has_probe_pred
+    _assert_join_result(jp.fused_join_probe_agg_plain(
+        pp, ppm, sk, spay, probe_key=m.probe_key, program=unsplit), want,
+        f"{query} unsplit program")
+    if K:
+        assert want[:, -1].sum() > 0
+
+
+RESIDUAL = {"t": "cmp", "op": ">", "l": col("pay"), "r": lit(-0.5)}
+# (probe_preds, preds) of each form of a join program
+SPLIT_FORMS = {"probe and residual": ([JOIN_PRED], [RESIDUAL]),
+               "probe only": ([JOIN_PRED], []),
+               "residual only": ([], [RESIDUAL]),
+               "no probe slot": (None, [JOIN_PRED, RESIDUAL]),
+               "no predicate": (None, [])}
+
+
+@pytest.mark.parametrize("grouped", [False, True])
+@pytest.mark.parametrize("form", sorted(SPLIT_FORMS))
+def test_join_probe_split_forms_match_pallas(form, grouped):
+    """A program with a probe predicate and a residual, with either alone,
+    or without a probe slot: the plain version, and the kernel's order
+    step by step, equal the reference's kernel given all the predicates
+    at once."""
+    build, nb, bmask, probe, npr, pmask = _join_inputs(13)
+    build["g"] = build.pop("code")
+    (rb, rbm), (pb, pbm) = _both(build, nb, bmask)
+    (rp, rpm), (pp, ppm) = _both(probe, npr, pmask)
+    probe_preds, preds = SPLIT_FORMS[form]
+    group_cols, sizes = (["g"], [5]) if grouped else ([], [])
+    K = 5 if grouped else 0
+    bk = jnp.where(rbm, rb["bk"], SENTINEL)
+    order = jnp.argsort(bk)
+    _, aggs = ref_lower._agg_closures(JOIN_AGGS)
+    want = np.asarray(ref_join_kernel(
+        rp, rpm, bk[order], {c: rb[c][order] for c in ("pay", "g")},
+        probe_key="pk",
+        pred=ref_lower._compile_pred((probe_preds or []) + preds),
+        gid_fn=(ref_lower._gid_fn(group_cols, sizes) if grouped else None),
+        aggs=aggs, n_groups=K, block=512, interpret=True))
+    sk, porder = port_ops.sort_build_side(pb, pbm, "bk")
+    ppay = {c: pb[c][porder] for c in ("pay", "g")}
+    prog = compile_program(preds, [(f, a) for _, f, a in JOIN_AGGS],
+                           group_cols=group_cols,
+                           strides=mixed_radix_strides(sizes), n_groups=K,
+                           probe_preds=probe_preds)
+    assert prog.has_probe_pred == bool(probe_preds)
+    _assert_join_result(jp.fused_join_probe_agg_plain(
+        pp, ppm, sk, ppay, probe_key="pk", program=prog), want, form)
+    ordered, _ = _filter_search_residual(prog, pp, ppm, sk, ppay, "pk")
+    _assert_join_result(ordered, want, f"{form}, probe predicate first")
+
+
+def test_probe_predicate_may_not_read_the_build_side():
+    """The probe predicate runs before the search, so a program whose
+    probe slot reads a payload column is refused when it is typed."""
+    build, nb, bmask, probe, npr, pmask = _join_inputs(14)
+    (_, _), (pb, pbm) = _both(build, nb, bmask)
+    (_, _), (pp, ppm) = _both(probe, npr, pmask)
+    sk, order = port_ops.sort_build_side(pb, pbm, "bk")
+    prog = compile_program([], [("count", None)], probe_preds=[RESIDUAL])
+    with pytest.raises(ValueError, match="build-side"):
+        jp.fused_join_probe_agg_plain(pp, ppm, sk,
+                                      {"pay": pb["pay"][order]},
+                                      probe_key="pk", program=prog)
