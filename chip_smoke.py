@@ -2,45 +2,48 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
-(ten libraries, one nvcc each, in parallel; it fails unless the bf16
-attention library's SASS holds HGMMA and the SSD scan's HMMA, tensor-core,
-instructions), then drives the port's main path at SF 1 through
+Builds the hand-written CUDA kernels from
+``src/repro_torch/kernels/csrc`` (eight libraries, one nvcc each, in
+parallel; it fails unless the bf16 attention library's SASS holds HGMMA
+and the SSD scan's HMMA, tensor-core, instructions; the scan-aggregate
+kernels compile per program with NVRTC at their first call,
+``kernels/specialise.py``, and it prints each program's compile time,
+its registers and its local memory, and fails if a second call compiles
+again or a kernel has local memory), then drives the port's main path at SF 1 through
 ``repro_torch.api.connect()`` (device: the card): TPC-H Q6, Q1 and a
 grouped min/max query (the scan-aggregate kernels); Q12, Q14 and Q19,
 broadcast joins whose join stage runs the join-probe kernel; the
 selective repartition join of the semi-join tests, grouped by a
 dictionary-coded column, whose probe scan runs the Bloom-probe kernel
 and whose join stage runs the join-probe kernel, and the same join
-grouped by ``l_orderkey`` (Bloom kernel; its later stages have no
-kernel arm in either package); Q12 again as a repartition join (the
-join kernel over two exchange leaves); a GROUP BY ``l_orderkey`` over
-lineitem, whose stage-0 fragment runs the sort-aggregate kernel on 2^23
-rows; and TPC-H Q3, whose final stage runs the top-k kernel. It checks
-that every fragment of each kernel pipeline ran its CUDA kernel, that
-no stage of these queries waits for a kernel of a later slice, and that
-the rows equal the port's oracle; then it holds each kernel against its
-plain torch version at the main path's shapes (plus the first 2^20
-rows, the whole table and the edge cases) and times both; for the scan
-and join kernels also the profiler's device time of each kernel a call
-launches beside the event window, and for the join the same rows
-through the other forms of its program (unsplit, a probe predicate that
-rejects or accepts every row, the residual alone). Then the path of the
-four kernels no query reaches: it drives ``repro_torch.kernels.ops``'
+grouped by ``l_orderkey`` (Bloom kernel; its later stages have no kernel
+arm in either package); Q12 again as a repartition join (the join kernel
+over two exchange leaves); a GROUP BY ``l_orderkey`` over lineitem,
+whose stage-0 fragment runs the sort-aggregate kernel on 2^23 rows; and
+TPC-H Q3, whose final stage runs the top-k kernel. It checks that every
+fragment of each kernel pipeline ran its CUDA kernel, that no stage of
+these queries waits for a kernel of a later slice, and that the rows
+equal the port's oracle; then it holds each kernel against its plain
+torch version at the main path's shapes (plus the first 2^20 rows, the
+whole table and the edge cases) and times both; for the scan and join
+kernels also the profiler's device time of each kernel a call launches
+beside the event window, and for the join the same rows through the
+other forms of its program (unsplit, a probe predicate that rejects or
+accepts every row, the residual alone). Then the path of the four
+kernels no query reaches: it drives ``repro_torch.kernels.ops``'
 ``flash_attention`` (granite-3-2b at 4096 and 32768 tokens, hymba-1.5b's
-window), ``ssd_scan`` (mamba2-130m, hymba-1.5b's mixer, and the
-chunk-parallel split's edges: one chunk, chunk 1024, S not a multiple
-of the chunk, one head), ``filter_agg`` (TPC-H Q6 over the SF 1
-lineitem columns, against the query's revenue) and ``groupby_onehot``
-(Q1's group id) with their launch counts reset, then holds each against
-its plain version and times it beside its bound and, where one PyTorch
-call computes the same function, that call; the SSD scan also with each
+window), ``ssd_scan`` (mamba2-130m, hymba-1.5b's mixer, and the chunk-
+parallel split's edges: one chunk, chunk 1024, S not a multiple of the
+chunk, one head), ``filter_agg`` (TPC-H Q6 over the SF 1 lineitem
+columns, against the query's revenue) and ``groupby_onehot`` (Q1's group
+id) with their launch counts reset, then holds each against its plain
+version and times it beside its bound and, where one PyTorch call
+computes the same function, that call; the SSD scan also with each
 phase's device time and its executed against its needed operations.
-Before the kernel phases, a profile of the sort-aggregate's and the
-bf16 attention's main calls, kernel by kernel (torch.profiler).
-Exits nonzero on any failure. The last two lines are JSON: the kernel
-table, then ``{"ok": true, "device": ...}``.
-"""
+Before the kernel phases, a profile of the sort-aggregate's and the bf16
+attention's main calls, kernel by kernel (torch.profiler). Exits nonzero
+on any failure. The last two lines are JSON: the kernel table, then
+``{"ok": true, "device": ...}``. """
 
 from __future__ import annotations
 
@@ -81,11 +84,11 @@ SELECTIVE_JOIN_BY_ORDERKEY = SELECTIVE_JOIN.replace(
 SORTAGG_SQL = ("select l_orderkey, sum(l_quantity) as s, count(*) as c "
                "from lineitem group by l_orderkey order by l_orderkey")
 KERNELS = {   # dispatch kernel name → (wrapper module attr, CUDA source, TPU kernel)
-    "filter_agg": ("fused_filter_agg", "filter_agg.cu",
+    "filter_agg": ("fused_filter_agg", "scan_spec.cuh",
                    "src/repro/kernels/filter_agg.py:134"),
-    "groupby_onehot": ("fused_groupby", "groupby.cu",
+    "groupby_onehot": ("fused_groupby", "scan_spec.cuh",
                        "src/repro/kernels/groupby_onehot.py:118"),
-    "segmented_minmax": ("fused_groupby_minmax", "groupby.cu",
+    "segmented_minmax": ("fused_groupby_minmax", "scan_spec.cuh",
                          "src/repro/kernels/segmented_minmax.py:90"),
     "join_probe_agg": ("fused_join_probe_agg", "join_probe.cu",
                        "src/repro/kernels/join_probe.py:105"),
@@ -312,7 +315,7 @@ def query_phase(torch, ext, *, sf=1, n_parts=None, device=None,
     suites' planner)."""
     from repro_torch.api import connect
     from repro_torch.core import CoordinatorConfig
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import ops, specialise
     from repro_torch.sql import oracle
     from repro_torch.sql.logical import Binder
     from repro_torch.sql.parser import parse
@@ -384,6 +387,7 @@ def query_phase(torch, ext, *, sf=1, n_parts=None, device=None,
         for name, sql, sess, kernels in queries:
             records.clear()
             current[0] = name
+            n_loaded = len(specialise.loaded())
             if on_card:
                 held = torch.cuda.memory_allocated()
                 torch.cuda.reset_peak_memory_stats()
@@ -436,6 +440,14 @@ def query_phase(torch, ext, *, sf=1, n_parts=None, device=None,
                 peaks[name] = torch.cuda.max_memory_allocated() / 2**20
                 mem = (f", peak device memory {peaks[name]:.1f} MiB "
                        f"({held / 2**20:.1f} MiB held before it)")
+            new = specialise.loaded()[n_loaded:]
+            if new:
+                mem += (f", {len(new)} scan kernel(s) loaded in its "
+                        f"untimed first calls: " + ", ".join(
+                            f"{k.kind} " + (f"NVRTC {k.compile_ms:.1f} ms"
+                                            if k.origin == "nvrtc"
+                                            else "from the disk cache")
+                            for k in new))
             log(f"query {name}: wall {wall:.3f} s, compute_s "
                 f"{sum(r['compute_s'] for r in records):.6f} s over "
                 f"{len(records)} fragments ({'; '.join(on)}), "
@@ -612,6 +624,20 @@ def _program_work(prog, n_eval, n_pass, n_probe=0):
         + sum(_program_ops(prog, 2 + a) for a in range(prog.n_aggs)))
 
 
+def _first_use_bytes(stages, nbytes_of):
+    """Bytes of columns read in stages: ``stages`` is a list of (column
+    names, rows) in the order a kernel reaches them; each column is
+    charged ``nbytes_of(name, rows)`` at the first stage that reads it
+    (a column the predicate reads is needed for every valid row, one
+    only the aggregates read for the rows that pass)."""
+    seen, total = set(), 0
+    for names, rows in stages:
+        for c in sorted(set(names) - seen):
+            total += nbytes_of(c, rows)
+        seen |= set(names)
+    return total
+
+
 def _bound(nbytes, ops, peak=FP64_FLOPS):
     """Least time of a call that must move ``nbytes`` and do ``ops``:
     the larger of the two over HBM bandwidth and the peak rate."""
@@ -723,24 +749,27 @@ def scan_kernel_phase(torch, dev, state, launches, flush):
         wrapper = getattr(ops, KERNELS[kernel][0])
         names = list(prog.names)
         results = {}
-        # each call: the kernel, then the finishing pass over its partials
-        expect = {"filter_agg_kernel" if kernel == "filter_agg"
-                  else "groupby_kernel": 1, "reduce_partials_kernel": 1}
+        spec = _compiled_kernel(torch, dev, kernel, prog, lineitem)
+        # each call: the program's kernel, then the finishing pass over
+        # its partials
+        expect = {f"spec_{spec['skeleton']}": 1, "reduce_partials_kernel": 1}
         for label, n in _sizes(n_total, state["rows"][kernel]):
             blk = from_numpy({c: lineitem[c][:n] for c in names},
                              bucket_capacity(n), dev)
             cols, mask = blk.columns, blk.mask
 
             def bound(got):
-                # the mask over the capacity, each program column over
-                # the valid rows, the output once
+                # the mask over the capacity, the predicate's columns
+                # over the valid rows, the other columns over the rows
+                # that pass, the output once
                 n_valid = int(mask.sum())
                 typed = for_columns(prog, cols)
                 n_pass = int((mask & (eval_slot(typed, 0, cols) != 0))
                              .sum()) if prog.has_pred else n_valid
-                width = sum(cols[c].element_size() for c in names)
-                return _bound(mask.numel() + n_valid * width
-                              + got.numel() * 8,
+                nbytes = _first_use_bytes(
+                    [(prog.slot_columns(0), n_valid), (names, n_pass)],
+                    lambda c, r: r * cols[c].element_size())
+                return _bound(mask.numel() + nbytes + got.numel() * 8,
                               _program_work(prog, n_valid, n_pass))
             results[label] = _hold(
                 torch, flush, f"{kernel} {label}",
@@ -767,8 +796,34 @@ def scan_kernel_phase(torch, dev, state, launches, flush):
                      f"{kernel} empty groups")
         log(f"kernel {kernel}: all-masked"
             f"{' and empty-group' if prog.n_groups else ''} cases = plain")
-        table.append(_table_row(kernel, launches, results, "main"))
+        table.append(_table_row(kernel, launches, results, "main", **spec))
     return table
+
+
+def _compiled_kernel(torch, dev, kernel, prog, lineitem):
+    """The scan program's compiled kernel: compiled by NVRTC in the query
+    phase's first call, a cache hit here. Fails if it compiles again or
+    has local memory. Returns its row of the kernel table's extras."""
+    from repro_torch.exec.batch import from_numpy
+    from repro_torch.kernels import specialise
+    from repro_torch.kernels.program import for_columns
+    blk = from_numpy({c: lineitem[c][:1024] for c in prog.names}, 1024, dev)
+    typed = for_columns(prog, blk.columns)
+    before = len(specialise.loaded())
+    k = specialise.kernel(typed, dev)
+    hit = len(specialise.loaded()) == before
+    made = (f"NVRTC {k.compile_ms:.1f} ms" if k.origin == "nvrtc"
+            else "loaded from the disk cache")
+    log(f"program {kernel}: {k.kind}, {made} at its first call (query "
+        f"phase), second call {'a cache hit' if hit else 'compiled again'}"
+        f", {k.regs} registers, {k.local_bytes} local bytes, {k.per_sm} "
+        "CTAs an SM")
+    if not hit:
+        raise AssertionError(f"{kernel}: compiled again")
+    if k.local_bytes:
+        raise AssertionError(f"{kernel}: {k.local_bytes} B of local memory")
+    return {"skeleton": k.kind, "compile_ms": k.compile_ms,
+            "regs": k.regs, "local_bytes": k.local_bytes}
 
 
 def _prepass(lower, xops, m, bcols, bmask):
@@ -886,19 +941,29 @@ def join_kernel_phase(torch, dev, state, launches, flush):
                         int(passed.sum()))
 
             def bound(vp):
-                # the mask over the capacity, the key and the probe
-                # columns over the valid rows, the sorted keys and the
-                # payload once, the output; the program's probe predicate
-                # on the valid rows, the rest on the searched hits. The
-                # search's repeated L2 reads are not counted; the key and
-                # payload bytes are, though the kernel reads them for the
-                # searched rows only.
+                # the mask over the capacity; the probe predicate's
+                # columns over the valid rows, the probe key over the
+                # searched rows, the residual's columns over their hits,
+                # the other columns over the hits that pass it (a
+                # payload column at most once a build row); one sorted
+                # key a searched row, at most each once; the output.
+                # Operations: the probe predicate on the valid rows, the
+                # rest on the searched hits. The search's repeated L2
+                # reads are not counted.
                 n_valid = int(mask.sum())
-                _, found, passed = counts(vp)
-                width = sum(cols[c].element_size() for c in pnames)
-                nbytes = mask.numel() + n_valid * width + sk.numel() * 8 \
-                    + sum(v.numel() * v.element_size()
-                          for v in spay.values())
+                searched, found, passed = counts(vp)
+
+                def nbytes_of(c, r):
+                    if c in spay:
+                        return min(r, nb) * spay[c].element_size()
+                    return r * cols[c].element_size()
+                probe = (vp.slot_columns(vp.probe_slot)
+                         if vp.has_probe_pred else set())
+                nbytes = mask.numel() + min(searched, sk.numel()) * 8 \
+                    + _first_use_bytes(
+                        [(probe, n_valid), ({m.probe_key}, searched),
+                         (vp.slot_columns(0), found),
+                         (set(vp.names), passed)], nbytes_of)
                 return lambda got: _bound(nbytes + got.numel() * 8,
                                           _program_work(vp, found, passed,
                                                         n_valid))

@@ -10,7 +10,11 @@ The reference sized Pallas row blocks against a quarter of the TPU's
 VMEM. On Hopper a CTA streams rows grid-stride, so what the model sizes
 is different: the per-CTA shared-memory working set (the (K, A+1) f64
 group tile, or the per-warp partials of the ungrouped reduction), and
-from it how many CTAs fit on an SM, which fixes the grid.
+from it how many CTAs fit on an SM, which fixes the grid. The scan
+kernels (``filter_agg``, ``groupby_onehot``, ``segmented_minmax``) have
+no tiling here: each program compiles into its own kernel, whose grid
+follows its occupancy (``kernels.specialise``); the dispatch layer only
+asks :func:`group_tile_fits` whether a grouped tile fits a block.
 
 The reference also kept the join's sorted build side and the Bloom
 filter's words resident in VMEM and capped their size by it. Neither
@@ -142,15 +146,6 @@ def _warp_partials_bytes(n_aggs: int) -> int:
     return _WARPS * max(n_aggs, 1) * _ACC_BYTES
 
 
-def filter_agg_tiling(*, n_cols: int, n_aggs: int) -> KernelTiling:
-    """scan→filter→agg: each thread folds its rows into A registers; the
-    CTA reduces per-warp partials through shared memory."""
-    smem = _warp_partials_bytes(n_aggs)
-    flops = 4.0 * n_aggs + 2.0 * n_cols          # pred eval + accumulate
-    bpr = float(n_cols * _COL_BYTES + _MASK_BYTES)
-    return _finish("filter_agg", smem, flops, bpr)
-
-
 def group_tile_bytes(n_groups: int, n_aggs: int) -> int:
     """Shared memory of one CTA's (K, A+1) f64 group tile."""
     return max(n_groups, 1) * (n_aggs + 1) * _ACC_BYTES
@@ -158,18 +153,6 @@ def group_tile_bytes(n_groups: int, n_aggs: int) -> int:
 
 def group_tile_fits(n_groups: int, n_aggs: int) -> bool:
     return group_tile_bytes(n_groups, n_aggs) <= smem_budget_bytes()
-
-
-def groupby_tiling(kernel: str, *, n_cols: int, n_aggs: int,
-                   n_groups: int) -> KernelTiling:
-    """Grouped aggregation (sum/count, plus min/max for
-    ``segmented_minmax``): one shared-memory (K, A+1) f64 tile per CTA,
-    updated with shared atomics. The tile fixes how many CTAs fit on an
-    SM."""
-    smem = group_tile_bytes(n_groups, n_aggs)
-    flops = 2.0 * (n_aggs + 1) + 2.0 * n_cols    # pred/gid eval + update
-    bpr = float(n_cols * _COL_BYTES + _MASK_BYTES)
-    return _finish(kernel, smem, flops, bpr)
 
 
 def join_probe_tiling(*, n_cols: int, n_payload: int, n_aggs: int,

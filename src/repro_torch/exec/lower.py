@@ -45,15 +45,21 @@ one-pass vectorized worker loop):
 
 A kernel cannot call a Python closure, so the predicate, the aggregate
 arguments and the group id compile to one postfix program
-(:mod:`repro_torch.kernels.program`) that the kernel interprets per
-row. An expression the interpreter cannot run (a non-numeric literal,
-too many columns) is a miss reason too.
+(:mod:`repro_torch.kernels.program`): the join kernel interprets it per
+row, and the scan arms compile it into a kernel of its own at first use
+(:mod:`repro_torch.kernels.specialise`). An expression the program
+cannot hold (a non-numeric literal, too many columns) is a miss reason
+too.
 
-Launch shapes are not hand constants: every arm asks
+Launch shapes are not hand constants: every arm but the scan arms asks
 ``repro_torch.analysis.roofline`` for a :class:`KernelTiling` derived
 from the card's shared-memory and thread budgets. The tiling key joins
 the program cache key (``dispatch_signature``) and its estimates surface
-in EXPLAIN via :func:`kernel_info`.
+in EXPLAIN via :func:`kernel_info`. The scan arms (``filter_agg``,
+``groupby_onehot``, ``segmented_minmax``) carry no tiling: their
+kernels are compiled per program and size their grid from the compiled
+kernel's occupancy (``kernels.specialise``); the matcher only checks
+that a grouped tile fits one block's shared memory.
 """
 
 from __future__ import annotations
@@ -117,7 +123,7 @@ class Match:
     group_cols: list[str]
     sizes: list[int]
     aggs: list                   # [name, fn, arg expr dict | None]
-    tiling: roofline.KernelTiling
+    tiling: roofline.KernelTiling | None    # None for the scan arms
     # join_probe_agg only:
     build_leaf: dict | None = None
     probe_preds: list = dataclasses.field(default_factory=list)
@@ -308,16 +314,11 @@ def _match_agg(op: dict):
         return None, f"expression not runnable in a kernel: {e}"
     if not group_cols:
         kernel = "filter_agg"
-        tiling = roofline.filter_agg_tiling(
-            n_cols=_leaf_width(child, len(needed)), n_aggs=len(aggs))
     else:
         kernel = ("groupby_onehot" if fns <= ONEHOT_AGG_FNS
                   else "segmented_minmax")
-        tiling = roofline.groupby_tiling(
-            kernel, n_cols=_leaf_width(child, len(needed)),
-            n_aggs=len(aggs), n_groups=K)
-    return Match(kernel, child, preds, group_cols, sizes, aggs,
-                 tiling, program=program), None
+    return Match(kernel, child, preds, group_cols, sizes, aggs, None,
+                 program=program), None
 
 
 def _match_join(op, join, preds, needed, group_cols, sizes, aggs, K):
@@ -382,7 +383,7 @@ def dispatch_signature(op: dict) -> tuple[str, tuple | None, dict]:
     dispatch on their child (the coordinator's host sort still runs)."""
     m, _ = match_fragment_ex(op)
     if m is not None:
-        return m.kernel, m.tiling.key, op
+        return m.kernel, m.tiling.key if m.tiling else None, op
     if op.get("t") == "final":
         return dispatch_signature(op["child"])
     return "", None, op
@@ -400,7 +401,8 @@ def kernel_info(op: dict) -> dict:
     ``kernel`` is the fused kernel the pipeline will actually run with
     (for ``final`` ops, possibly on the child under the host sort) or
     None; ``miss`` is the miss reason for the op that executes; ``tiling``
-    the roofline tiling estimates of the matched kernel.
+    the roofline tiling estimates of the matched kernel (None for the
+    scan arms, whose compiled kernels size their own grid).
     """
     m, miss = match_fragment_ex(op)
     if m is None and op.get("t") == "final":
@@ -413,7 +415,7 @@ def kernel_info(op: dict) -> dict:
     if m is None:
         return {"kernel": None, "miss": miss, "tiling": None}
     return {"kernel": m.kernel, "miss": None,
-            "tiling": m.tiling.as_dict()}
+            "tiling": m.tiling.as_dict() if m.tiling else None}
 
 
 def lower_fragment(op: dict) -> Lowered | None:
@@ -455,7 +457,7 @@ def _compile_pred(preds: list[dict]):
 
 def _lower_direct_agg(m: Match) -> Lowered:
     agg_names = [name for name, _, _ in m.aggs]
-    program, tiling = m.program, m.tiling
+    program = m.program
     leaf_id = "in0"
     leaves = [(leaf_id, m.leaf)]
 
@@ -463,7 +465,7 @@ def _lower_direct_agg(m: Match) -> Lowered:
         def fn(blocks):
             cols, mask = blocks[leaf_id]
             acc = kops.fused_filter_agg(cols, mask, program=program,
-                                        tiling=tiling)
+                                        tiling=None)
             out = {name: acc[j].reshape(1)
                    for j, name in enumerate(agg_names)}
             return out, torch.ones((1,), dtype=torch.bool,
@@ -479,7 +481,7 @@ def _lower_direct_agg(m: Match) -> Lowered:
 
     def fn(blocks):
         cols, mask = blocks[leaf_id]
-        tile = grouped(cols, mask, program=program, tiling=tiling)
+        tile = grouped(cols, mask, program=program, tiling=None)
         out = dict(decode_group_ids(group_cols, sizes, K, mask.device))
         for j, name in enumerate(agg_names):
             out[name] = tile[:, j]

@@ -1,25 +1,38 @@
-// Shared pieces of the scan-aggregate kernels (filter_agg.cu,
-// groupby.cu, join_probe.cu): the column table, the per-row interpreter
-// of the postfix expression programs built by kernels/program.py, the
-// f64 identities and combiners, the per-row folds into the ungrouped
-// accumulators and the grouped (K, A+1) tile, and the fixed-order
-// second pass (contiguous runs of the CTAs' partials, then a tree).
+// Shared pieces of the scan-aggregate kernels: the column table, the
+// per-row interpreter of the postfix expression programs built by
+// kernels/program.py, the f64 identities and combiners, the per-row folds
+// into the ungrouped accumulators and the grouped (K, A+1) tile, and the
+// fixed-order second pass (contiguous runs of the CTAs' partials, then a
+// tree). The join kernel (join_probe.cu) runs the interpreter; the
+// compiled scan kernels (scan_spec.cuh, built per program by NVRTC)
+// take the identities, combiners and the second pass from here.
 //
 // The join kernel reads some program columns on the build side, at the
 // probe row's hit position: the loads and folds take a template flag,
 // kGather, and a bit mask of the gathered columns. With kGather false
-// (the scan kernels) they are the plain row loads.
+// they are the plain row loads.
 //
 // Built with -fmad=false: the interpreter's mul and add stay separate
 // roundings, as in the reference's unfused jnp arithmetic.
+//
+// NVRTC has no host system headers: under it (__CUDACC_RTC__) the few
+// types and constants taken from them are defined here, and the host
+// launch helpers at the end are left out.
 
 #pragma once
 
+#ifdef __CUDACC_RTC__
+typedef long long int64_t;
+#ifndef INFINITY
+#define INFINITY __longlong_as_double(0x7ff0000000000000ULL)
+#endif
+#else
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "cuda_error.cuh"
+#endif
 
 namespace scan_agg {
 
@@ -311,6 +324,7 @@ reduce_partials_kernel(const double* __restrict__ partials, int n_parts,
   if (y == 0 && live) out[i] = red[threadIdx.x];
 }
 
+#ifndef __CUDACC_RTC__
 inline int reduce_partials(const double* partials, int n_parts,
                            int64_t width, int row_len, const int* fns,
                            int n_aggs, double* out, cudaStream_t stream) {
@@ -349,5 +363,7 @@ inline Cols make_cols(const int64_t* ptrs, const int* types, int n_cols) {
   }
   return c;
 }
+
+#endif  // __CUDACC_RTC__
 
 }  // namespace scan_agg

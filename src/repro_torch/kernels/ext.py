@@ -8,12 +8,17 @@ each, started together, at first use (or up front through
 :func:`build_all`). A library's file name carries a hash of its sources
 and flags, so an edit rebuilds it and nothing else does. A process-wide
 lock guards the build (fragments call it from many threads), and a file
-lock guards it across processes.
+lock guards it across processes (:func:`build_lock`).
+
+The scan-aggregate kernels have no library: each program compiles into
+a kernel of its own (``kernels/specialise.py``) through NVRTC and loads
+through libcuda, both through ``ctypes`` (:func:`nvrtc_compile`,
+:func:`load_module`, :func:`launch_kernel`, at the end of this module).
 
 Launch counts: each kernel wrapper calls :func:`count_launch` under its
 own name where it launches its kernel and nowhere else, so a run can
-show that its main path went through the kernels (``groupby.cu`` serves
-two wrappers, ``groupby`` and ``groupby_minmax``; the join and Bloom
+show that its main path went through the kernels (the scan wrappers
+count as ``filter_agg``, ``groupby`` and ``groupby_minmax``; the join and Bloom
 wrappers count as ``join_probe_agg`` and ``bloom_filter``, the sort
 kernels as ``sort_agg`` and ``topk``; the fixed-layout benchmark kernels
 as ``filter_agg_q6`` and ``groupby_onehot``, the model kernels as
@@ -31,6 +36,7 @@ directory on the search path where it has one) for libcuda's
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import fcntl
 import hashlib
@@ -46,12 +52,10 @@ import torch
 from repro_torch.analysis.roofline import H100_SXM
 from repro_torch.kernels.program import DTYPE_CODES, MAX_COLS
 
-_CSRC = Path(__file__).resolve().parent / "csrc"
+CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_ext"
 
 SOURCES = {
-    "filter_agg": "filter_agg.cu",
-    "groupby": "groupby.cu",
     "join_probe": "join_probe.cu",
     "bloom": "bloom.cu",
     "sort_agg": "sort_agg.cu",
@@ -82,10 +86,6 @@ _P, _I, _L, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, \
 # scratch and outputs, or the top-k's columns, limit and mask; the
 # fixed-layout and model kernels take their tensors, shapes and scalars)
 _ARGTYPES = {
-    "filter_agg": [_P, _P, _I, _P, _L, _P, _P, _P, _P, _I, _P, _P, _I, _I,
-                   _P],
-    "groupby": [_P, _P, _I, _P, _L, _P, _P, _P, _P, _I, _I, _P, _P, _I, _I,
-                _P],
     "join_probe": [_P, _P, _I, _U, _P, _L, _P, _I, _P, _L, _P, _P, _P, _P,
                    _I, _I, _I, _P, _P, _I, _I, _P],
     "bloom": [_P, _I, _P, _L, _P, _L, _I, _P, _I, _I, _P],
@@ -155,23 +155,31 @@ def _link_flags(name: str, nvcc: str) -> list[str]:
 def _lib_path(name: str) -> Path:
     h = hashlib.sha1()
     for f in (SOURCES[name],) + HEADERS:
-        h.update((_CSRC / f).read_bytes())
+        h.update((CSRC / f).read_bytes())
     h.update(" ".join(nvcc_flags(name) + LIBS.get(name, [])).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+
+
+@contextlib.contextmanager
+def build_lock():
+    """The process-wide lock and the file lock of ``BUILD_DIR``: one
+    build or compile at a time, across threads and processes."""
+    with _lock:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        with open(BUILD_DIR / "build.lock", "w") as lk:
+            fcntl.flock(lk, fcntl.LOCK_EX)
+            try:
+                yield
+            finally:
+                fcntl.flock(lk, fcntl.LOCK_UN)
 
 
 def build_all() -> dict[str, float]:
     """Build every missing library, one ``nvcc`` per source, all started
     together. Returns seconds per library built (empty if none was).
     Raises with the compiler's output if a build fails."""
-    with _lock:
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        with open(BUILD_DIR / "build.lock", "w") as lk:
-            fcntl.flock(lk, fcntl.LOCK_EX)
-            try:
-                return _build_missing()
-            finally:
-                fcntl.flock(lk, fcntl.LOCK_UN)
+    with build_lock():
+        return _build_missing()
 
 
 def _build_missing() -> dict[str, float]:
@@ -185,7 +193,7 @@ def _build_missing() -> dict[str, float]:
         tmp = out.with_suffix(f".tmp{os.getpid()}")
         log = open(BUILD_DIR / f"{name}.log", "w")
         cmd = [nvcc, *nvcc_flags(name), "-o", str(tmp),
-               str(_CSRC / SOURCES[name]), *_link_flags(name, nvcc)]
+               str(CSRC / SOURCES[name]), *_link_flags(name, nvcc)]
         procs[name] = (subprocess.Popen(cmd, stdout=log,
                                         stderr=subprocess.STDOUT),
                        log, tmp, out)
@@ -254,6 +262,16 @@ def column_args(columns: dict, mask, prog, payload: dict | None = None,
     (column tensors kept alive, pointer array, type array, n_cols). A
     column the program gathers on the build side (``prog.gathered``)
     comes from ``payload`` and has ``build_rows`` rows."""
+    cols = program_columns(columns, mask, prog, payload, build_rows)
+    ptrs = (ctypes.c_int64 * MAX_COLS)(*[c.data_ptr() for c in cols])
+    types = (ctypes.c_int * MAX_COLS)(*[DTYPE_CODES[c.dtype] for c in cols])
+    return cols, ptrs, types, len(cols)
+
+
+def program_columns(columns: dict, mask, prog, payload: dict | None = None,
+                    build_rows: int = 0) -> list:
+    """The program's columns in its order, checked against the mask (or,
+    gathered ones, ``build_rows``) and contiguous."""
     check_mask(mask)
     cols = []
     gathered = prog.gathered or (False,) * len(prog.names)
@@ -267,9 +285,7 @@ def column_args(columns: dict, mask, prog, payload: dict | None = None,
         if c.dtype not in DTYPE_CODES:
             raise TypeError(f"column {name!r}: dtype {c.dtype} unsupported")
         cols.append(c.contiguous())
-    ptrs = (ctypes.c_int64 * MAX_COLS)(*[c.data_ptr() for c in cols])
-    types = (ctypes.c_int * MAX_COLS)(*[DTYPE_CODES[c.dtype] for c in cols])
-    return cols, ptrs, types, len(cols)
+    return cols
 
 
 def ptr_array(tensors) -> ctypes.c_void_p:
@@ -304,3 +320,216 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
     if rc != 0:
         msg = lib.kernel_error_string(rc).decode()
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
+
+
+# -- per-program kernels: NVRTC and libcuda -----------------------------------
+#
+# The scan-aggregate kernels compile per program (kernels/specialise.py):
+# NVRTC from the CUDA toolkit turns the generated source into a cubin,
+# libcuda loads it into the primary context that torch made current and
+# launches it on torch's current stream. Both libraries load at first
+# use, through ctypes, so a machine without them imports this module.
+
+CU_FUNC_MAX_DYNAMIC_SHARED_SIZE_BYTES = 8
+CU_FUNC_LOCAL_SIZE_BYTES = 3
+CU_FUNC_NUM_REGS = 4
+REDUCE_THREADS = 256     # scan_agg.cuh kReduceThreads
+
+_dl: dict[str, ctypes.CDLL] = {}
+_primary: dict[int, ctypes.c_void_p] = {}
+
+
+def _toolkit_lib(stem: str) -> Path:
+    """``lib<stem>.so*`` of the CUDA toolkit that holds ``nvcc``."""
+    root = Path(_nvcc()).resolve().parents[1]
+    for d in (root / "lib64", root / "targets" / "x86_64-linux" / "lib"):
+        found = sorted(d.glob(f"lib{stem}.so*")) if d.is_dir() else []
+        if found:
+            return found[0]
+    raise RuntimeError(f"lib{stem}.so not found in the CUDA toolkit at "
+                       f"{root}")
+
+
+def _nvrtc() -> ctypes.CDLL:
+    lib = _dl.get("nvrtc")
+    if lib is None:
+        path = _toolkit_lib("nvrtc")
+        # NVRTC opens its builtins library by name at compile time
+        for b in sorted(path.parent.glob("libnvrtc-builtins.so*"))[:1]:
+            ctypes.CDLL(str(b), mode=ctypes.RTLD_GLOBAL)
+        lib = ctypes.CDLL(str(path))
+        lib.nvrtcGetErrorString.restype = ctypes.c_char_p
+        lib.nvrtcGetErrorString.argtypes = [_I]
+        lib.nvrtcCreateProgram.argtypes = [
+            ctypes.POINTER(_P), ctypes.c_char_p, ctypes.c_char_p, _I,
+            ctypes.POINTER(ctypes.c_char_p), ctypes.POINTER(ctypes.c_char_p)]
+        lib.nvrtcCompileProgram.argtypes = [
+            _P, _I, ctypes.POINTER(ctypes.c_char_p)]
+        lib.nvrtcAddNameExpression.argtypes = [_P, ctypes.c_char_p]
+        lib.nvrtcGetLoweredName.argtypes = [
+            _P, ctypes.c_char_p, ctypes.POINTER(ctypes.c_char_p)]
+        for fn in ("nvrtcGetProgramLogSize", "nvrtcGetCUBINSize"):
+            getattr(lib, fn).argtypes = [_P, ctypes.POINTER(ctypes.c_size_t)]
+        for fn in ("nvrtcGetProgramLog", "nvrtcGetCUBIN"):
+            getattr(lib, fn).argtypes = [_P, ctypes.c_char_p]
+        lib.nvrtcDestroyProgram.argtypes = [ctypes.POINTER(_P)]
+        lib.nvrtcVersion.argtypes = [ctypes.POINTER(_I), ctypes.POINTER(_I)]
+        _dl["nvrtc"] = lib
+    return lib
+
+
+def _nvrtc_check(rc: int, what: str) -> None:
+    if rc != 0:
+        msg = _nvrtc().nvrtcGetErrorString(rc).decode()
+        raise RuntimeError(f"{what}: NVRTC error {rc} ({msg})")
+
+
+def nvrtc_version() -> tuple[int, int]:
+    major, minor = _I(), _I()
+    _nvrtc_check(_nvrtc().nvrtcVersion(ctypes.byref(major),
+                                       ctypes.byref(minor)), "nvrtcVersion")
+    return major.value, minor.value
+
+
+def nvrtc_compile(source: str, name: str, headers: dict[str, str],
+                  options: list[str], name_exprs=()) -> tuple:
+    """Compile ``source`` (its includes resolved from ``headers``, name →
+    text) with NVRTC. Returns (cubin bytes, {name expression: lowered
+    name}, compiler log); raises with the log if the compile fails."""
+    lib = _nvrtc()
+    prog = _P()
+    hnames = (ctypes.c_char_p * max(len(headers), 1))(
+        *[h.encode() for h in headers])
+    htexts = (ctypes.c_char_p * max(len(headers), 1))(
+        *[t.encode() for t in headers.values()])
+    _nvrtc_check(lib.nvrtcCreateProgram(ctypes.byref(prog), source.encode(),
+                                        name.encode(), len(headers), htexts,
+                                        hnames), "nvrtcCreateProgram")
+    try:
+        for e in name_exprs:
+            _nvrtc_check(lib.nvrtcAddNameExpression(prog, e.encode()), e)
+        opts = (ctypes.c_char_p * len(options))(*[o.encode()
+                                                   for o in options])
+        rc = lib.nvrtcCompileProgram(prog, len(options), opts)
+        size = ctypes.c_size_t()
+        lib.nvrtcGetProgramLogSize(prog, ctypes.byref(size))
+        buf = ctypes.create_string_buffer(size.value)
+        lib.nvrtcGetProgramLog(prog, buf)
+        log = buf.value.decode(errors="replace")
+        if rc != 0:
+            raise RuntimeError(f"NVRTC could not compile {name} "
+                               f"({lib.nvrtcGetErrorString(rc).decode()}):"
+                               f"\n{log}")
+        _nvrtc_check(lib.nvrtcGetCUBINSize(prog, ctypes.byref(size)),
+                     "nvrtcGetCUBINSize")
+        image = ctypes.create_string_buffer(size.value)
+        _nvrtc_check(lib.nvrtcGetCUBIN(prog, image), "nvrtcGetCUBIN")
+        lowered = {}
+        for e in name_exprs:
+            out = ctypes.c_char_p()
+            _nvrtc_check(lib.nvrtcGetLoweredName(prog, e.encode(),
+                                                 ctypes.byref(out)), e)
+            lowered[e] = out.value.decode()
+        return image.raw, lowered, log
+    finally:
+        lib.nvrtcDestroyProgram(ctypes.byref(prog))
+
+
+def _libcuda() -> ctypes.CDLL:
+    lib = _dl.get("cuda")
+    if lib is None:
+        lib = ctypes.CDLL("libcuda.so.1")
+        lib.cuGetErrorString.argtypes = [_I, ctypes.POINTER(ctypes.c_char_p)]
+        lib.cuInit.argtypes = [_U]
+        lib.cuDeviceGet.argtypes = [ctypes.POINTER(_I), _I]
+        lib.cuDevicePrimaryCtxRetain.argtypes = [ctypes.POINTER(_P), _I]
+        lib.cuCtxGetCurrent.argtypes = [ctypes.POINTER(_P)]
+        lib.cuCtxSetCurrent.argtypes = [_P]
+        lib.cuModuleLoadData.argtypes = [ctypes.POINTER(_P), ctypes.c_char_p]
+        lib.cuModuleGetFunction.argtypes = [ctypes.POINTER(_P), _P,
+                                            ctypes.c_char_p]
+        lib.cuFuncGetAttribute.argtypes = [ctypes.POINTER(_I), _I, _P]
+        lib.cuFuncSetAttribute.argtypes = [_P, _I, _I]
+        lib.cuOccupancyMaxActiveBlocksPerMultiprocessor.argtypes = [
+            ctypes.POINTER(_I), _P, _I, ctypes.c_size_t]
+        lib.cuLaunchKernel.argtypes = [_P, _U, _U, _U, _U, _U, _U, _U, _P,
+                                       ctypes.POINTER(_P), ctypes.POINTER(_P)]
+        _dl["cuda"] = lib
+    return lib
+
+
+def _cu(rc: int, what: str) -> None:
+    if rc != 0:
+        s = ctypes.c_char_p()
+        _libcuda().cuGetErrorString(rc, ctypes.byref(s))
+        raise RuntimeError(f"{what}: libcuda error {rc} "
+                           f"({(s.value or b'?').decode()})")
+
+
+def _make_current(device: torch.device) -> None:
+    """Make ``device``'s primary context (torch's) current on this
+    thread, where it is not."""
+    lib = _libcuda()
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    ctx = _primary.get(index)
+    if ctx is None:
+        torch.cuda.init()
+        _cu(lib.cuInit(0), "cuInit")
+        dev, ctx = _I(), _P()
+        _cu(lib.cuDeviceGet(ctypes.byref(dev), index), "cuDeviceGet")
+        _cu(lib.cuDevicePrimaryCtxRetain(ctypes.byref(ctx), dev.value),
+            "cuDevicePrimaryCtxRetain")
+        ctx = _primary.setdefault(index, ctx)
+    cur = _P()
+    _cu(lib.cuCtxGetCurrent(ctypes.byref(cur)), "cuCtxGetCurrent")
+    if cur.value != ctx.value:
+        _cu(lib.cuCtxSetCurrent(ctx), "cuCtxSetCurrent")
+
+
+def load_module(image: bytes, device: torch.device) -> ctypes.c_void_p:
+    """Load a cubin into ``device``'s primary context (never unloaded)."""
+    _make_current(device)
+    mod = _P()
+    _cu(_libcuda().cuModuleLoadData(ctypes.byref(mod), image),
+        "cuModuleLoadData")
+    return mod
+
+
+def module_function(module, name: str) -> ctypes.c_void_p:
+    fn = _P()
+    _cu(_libcuda().cuModuleGetFunction(ctypes.byref(fn), module,
+                                      name.encode()), name)
+    return fn
+
+
+def function_attribute(fn, attr: int) -> int:
+    v = _I()
+    _cu(_libcuda().cuFuncGetAttribute(ctypes.byref(v), attr, fn),
+        "cuFuncGetAttribute")
+    return v.value
+
+
+def set_max_dynamic_smem(fn, nbytes: int) -> None:
+    _cu(_libcuda().cuFuncSetAttribute(
+        fn, CU_FUNC_MAX_DYNAMIC_SHARED_SIZE_BYTES, nbytes),
+        "cuFuncSetAttribute")
+
+
+def occupancy(fn, threads: int, smem: int) -> int:
+    """CTAs of ``threads`` threads and ``smem`` dynamic bytes that fit
+    one SM at once."""
+    v = _I()
+    _cu(_libcuda().cuOccupancyMaxActiveBlocksPerMultiprocessor(
+        ctypes.byref(v), fn, threads, smem), "cuOccupancy")
+    return v.value
+
+
+def launch_kernel(fn, ctas: int, threads: int, smem: int, stream: int,
+                  args: list, device: torch.device) -> None:
+    """Launch ``fn`` on ``stream`` with ``args`` (ctypes values, in the
+    kernel's parameter order); raises if the launch is refused."""
+    _make_current(device)
+    params = (_P * len(args))(*[ctypes.addressof(a) for a in args])
+    _cu(_libcuda().cuLaunchKernel(fn, ctas, 1, 1, threads, 1, 1, smem,
+                                 stream, params, None), "cuLaunchKernel")

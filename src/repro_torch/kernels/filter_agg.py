@@ -4,7 +4,8 @@
 The hot loop of a scan-heavy query worker (TPC-H Q6): evaluate the
 predicate over the column block and fold the aggregates in one pass, with
 no mask or filtered column ever written. :func:`fused_filter_agg_cuda`
-launches the hand-written kernel (``csrc/filter_agg.cu``);
+launches the program's own kernel, compiled at first use
+(:mod:`repro_torch.kernels.specialise`, ``csrc/scan_spec.cuh``);
 :func:`fused_filter_agg_plain` is the same function in plain torch, over
 the same expression program, for CPU tensors and as the yardstick the
 kernel is held against on the card.
@@ -20,11 +21,9 @@ float32 ``[revenue, count]`` (``csrc/filter_agg_q6.cu``).
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from repro_torch.kernels import ext
+from repro_torch.kernels import ext, specialise
 from repro_torch.kernels.common import ACC_DTYPE, NEUTRAL
 from repro_torch.kernels.program import Program, eval_slot, for_columns
 
@@ -69,27 +68,11 @@ def fused_filter_agg_plain(columns: dict, mask, *,
 
 def fused_filter_agg_cuda(columns: dict, mask, *, program: Program,
                           tiling) -> torch.Tensor:
-    lib = ext.library(NAME)
-    program = for_columns(program, columns)
-    dev = mask.device
-    cols, ptrs, types, n_cols = ext.column_args(columns, mask, program)
-    code, consts, slots, fns = program.device_arrays(dev)
-    A = program.n_aggs
-    n = int(mask.shape[0])
-    ctas = ext.grid_ctas(tiling, n, dev)
-    partials = torch.empty((ctas, A), dtype=ACC_DTYPE, device=dev)
-    out = torch.empty((A,), dtype=ACC_DTYPE, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.filter_agg_launch(
-        ctypes.cast(ptrs, ctypes.c_void_p), ctypes.cast(types,
-                                                        ctypes.c_void_p),
-        n_cols, mask.data_ptr(), n, code.data_ptr(), consts.data_ptr(),
-        slots.data_ptr(), fns.data_ptr(), A, partials.data_ptr(),
-        out.data_ptr(), ctas, tiling.block_rows, stream)
-    ext.check(lib, rc, NAME)
-    ext.count_launch(NAME)
-    del cols
-    return out
+    """The program's compiled kernel (:mod:`.specialise`, skeleton
+    ``filter_agg``). ``tiling`` is unused (the dispatch layer passes
+    None): the grid follows the compiled kernel's occupancy."""
+    del tiling
+    return specialise.launch(NAME, columns, mask, program)
 
 
 # -- the fixed-layout Q6 kernel (``filter_agg``) ------------------------------

@@ -3,8 +3,11 @@
 
 For group keys with a small known domain K (Q1: returnflag × linestatus,
 K = 6) the reference turned grouped sums into a one-hot matmul on the
-MXU. The Hopper kernel (``csrc/groupby.cu``) keeps the same (K, A+1)
-contract with a shared-memory tile per CTA instead; see
+MXU. The Hopper kernel keeps the same (K, A+1) contract with the
+one-hot done in registers: each program compiles into its own kernel
+(:mod:`repro_torch.kernels.specialise`, ``csrc/scan_spec.cuh``), whose
+threads fold each row into a (K, A+1) register tile by a select over
+the groups where the tile is small, or into a shared-memory tile; see
 :mod:`repro_torch.kernels.segmented_minmax` for the contract and the
 shared launch and plain helpers. Only ``sum`` and ``count`` aggregates
 run here.

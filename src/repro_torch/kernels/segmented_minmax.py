@@ -7,20 +7,19 @@ Contract (as the reference's): the result is (K, A+1) float64, the A
 aggregate columns plus a trailing presence count of the rows that
 survived the filter. Absent groups hold the identities: 0 for sums and
 counts, +inf/-inf for min/max. Rows whose group id falls outside
-[0, K) reach no group. :func:`fused_groupby_minmax_cuda` launches
-``csrc/groupby.cu``, the grouped kernel that ``fused_groupby`` launches
-too (it folds min/max by compare-and-swap beside the atomic sums);
-:func:`fused_groupby_minmax_plain` computes the same in plain torch
-over the same expression program.
+[0, K) reach no group. :func:`fused_groupby_minmax_cuda` launches the
+program's own grouped kernel, compiled at first use as
+``fused_groupby``'s is (:mod:`repro_torch.kernels.specialise`,
+``csrc/scan_spec.cuh``: the (K, A+1) tile in registers where it is
+small, else in shared memory); :func:`fused_groupby_minmax_plain`
+computes the same in plain torch over the same expression program.
 """
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from repro_torch.kernels import ext
+from repro_torch.kernels import specialise
 from repro_torch.kernels.common import ACC_DTYPE, NEUTRAL
 from repro_torch.kernels.program import Program, eval_slot, for_columns
 
@@ -73,30 +72,13 @@ def grouped_plain(columns: dict, mask, program: Program) -> torch.Tensor:
 
 def launch_grouped(name: str, columns: dict, mask, program: Program,
                    tiling) -> torch.Tensor:
-    """Launch the grouped kernel (``csrc/groupby.cu``) and count the
-    launch under the wrapper's ``name`` (``groupby`` or
-    ``groupby_minmax``)."""
-    lib = ext.library("groupby")
-    program = for_columns(program, columns)
-    dev = mask.device
-    cols, ptrs, types, n_cols = ext.column_args(columns, mask, program)
-    code, consts, slots, fns = program.device_arrays(dev)
-    A, K = program.n_aggs, program.n_groups
-    n = int(mask.shape[0])
-    ctas = ext.grid_ctas(tiling, n, dev)
-    partials = torch.empty((ctas, K, A + 1), dtype=ACC_DTYPE, device=dev)
-    out = torch.empty((K, A + 1), dtype=ACC_DTYPE, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.groupby_launch(
-        ctypes.cast(ptrs, ctypes.c_void_p), ctypes.cast(types,
-                                                        ctypes.c_void_p),
-        n_cols, mask.data_ptr(), n, code.data_ptr(), consts.data_ptr(),
-        slots.data_ptr(), fns.data_ptr(), A, K, partials.data_ptr(),
-        out.data_ptr(), ctas, tiling.block_rows, stream)
-    ext.check(lib, rc, name)
-    ext.count_launch(name)
-    del cols
-    return out
+    """Launch the program's compiled grouped kernel (:mod:`.specialise`:
+    the tile in registers or in shared memory, by its size) and count
+    the launch under the wrapper's ``name`` (``groupby`` or
+    ``groupby_minmax``). ``tiling`` is unused (the dispatch layer
+    passes None): the grid follows the compiled kernel's occupancy."""
+    del tiling
+    return specialise.launch(name, columns, mask, program)
 
 
 def fused_groupby_minmax_plain(columns: dict, mask, *,

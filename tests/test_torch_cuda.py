@@ -1,9 +1,12 @@
-"""The port on the card: each CUDA kernel against its plain version, and
-the slices end to end on the default device (Q6, Q1, min/max; Q12, Q14,
-Q19 and the selective semi-join; the GROUP BY l_orderkey and Q3 of the
-sort path); and the four kernels no query reaches (the fixed-layout Q6
-and grouped sums, flash attention, the SSD scan), each against its
-plain version, with inputs its wrapper must refuse.
+"""The port on the card: each CUDA kernel against its plain version (the
+scan kernels compiled per program, at both grouped skeletons, with
+min/max edge values, repeatability, local memory and the compile cache
+checked too), and the slices end to end on the default device (Q6, Q1,
+min/max; Q12, Q14, Q19 and the selective semi-join; the GROUP BY
+l_orderkey and Q3 of the sort path); and the four kernels no query
+reaches (the fixed-layout Q6 and grouped sums, flash attention, the SSD
+scan), each against its plain version, with inputs its wrapper must
+refuse.
 
 Every test here needs an NVIDIA GPU and nvcc and skips without them. The
 file imports neither ``jax`` nor ``repro``, so it runs on a machine
@@ -20,14 +23,14 @@ from repro_torch.api import connect
 from repro_torch.exec import lower
 from repro_torch.analysis import roofline
 from repro_torch.core import CoordinatorConfig
-from repro_torch.kernels import bloom, ext, ops
+from repro_torch.kernels import bloom, ext, ops, specialise
 from repro_torch.kernels import filter_agg as fa
 from repro_torch.kernels import join_probe as jp
 from repro_torch.kernels import groupby_onehot as go
 from repro_torch.kernels import segmented_minmax as smm
 from repro_torch.kernels import sort_agg as sa
 from repro_torch.kernels import topk as tk
-from repro_torch.kernels.program import compile_program
+from repro_torch.kernels.program import compile_program, for_columns
 from repro_torch.sql import oracle
 from repro_torch.sql.logical import Binder
 from repro_torch.sql.parser import parse
@@ -117,9 +120,9 @@ def _nested_sum(names, op="+"):
 @pytest.mark.parametrize("depth", [3, 6, 11, 15])
 @pytest.mark.parametrize("grouped", [False, True])
 def test_interpreter_stack_depths_match_plain(session, depth, grouped):
-    """The interpreter's stack at each depth up to the column limit
-    against the plain version, in the predicate and the aggregate
-    arguments."""
+    """Programs as deep as the stack limit allows, in the predicate and
+    the aggregate arguments, against the plain version (the compiled
+    kernels hold each stack position in a local of its own)."""
     rng = np.random.default_rng(depth + grouped)
     dev = torch.device("cuda", 0)
     n = 1 << 16
@@ -137,17 +140,123 @@ def test_interpreter_stack_depths_match_plain(session, depth, grouped):
     assert prog.depth == depth
     mask = torch.from_numpy(rng.random(n) < 0.9).to(dev)
     kernel = "segmented_minmax" if grouped else "filter_agg"
-    tiling = (roofline.groupby_tiling(kernel, n_cols=depth + 1, n_aggs=3,
-                                      n_groups=4) if grouped
-              else roofline.filter_agg_tiling(n_cols=depth, n_aggs=3))
     wrapper, plain = WRAPPERS[kernel]
-    got = wrapper(cols, mask, program=prog, tiling=tiling)
+    got = wrapper(cols, mask, program=prog, tiling=None)
     want = plain(cols, mask, program=prog)
     torch.cuda.synchronize()
     g, w = got.cpu().numpy(), want.cpu().numpy()
     if grouped:
         np.testing.assert_array_equal(g[:, -1], w[:, -1])
     np.testing.assert_allclose(g, w, **TOL)
+
+
+def _compiled_block(K, A, fns, n, seed, dev):
+    """Columns x, y (float64, with NaN, +-inf and -0.0) and a group id g
+    that also falls outside [0, K), a mask, and a grouped program of A
+    aggregates cycling through ``fns``."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=n) * 100
+    y = rng.normal(size=n)
+    for v in (x, y):
+        special = rng.random(n)
+        v[special < 0.001] = np.nan
+        v[(special >= 0.001) & (special < 0.002)] = np.inf
+        v[(special >= 0.002) & (special < 0.003)] = -np.inf
+        v[(special >= 0.003) & (special < 0.01)] = -0.0
+    g = rng.integers(-2, K + 2, n).astype(np.int32)
+    cols = {"x": torch.from_numpy(x).to(dev), "y": torch.from_numpy(y).to(dev),
+            "g": torch.from_numpy(g).to(dev)}
+    args = [_col("x"), {"t": "bin", "op": "*", "l": _col("x"),
+                        "r": _col("y")}, _col("y")]
+    aggs = [(fns[a % len(fns)], None if fns[a % len(fns)] == "count"
+             else args[a % len(args)]) for a in range(A)]
+    prog = compile_program([{"t": "cmp", "op": "<>", "l": _col("y"),
+                             "r": _lit(0.5)}], aggs, group_cols=["g"],
+                           strides=[1], n_groups=K)
+    mask = torch.from_numpy(rng.random(n) < 0.95).to(dev)
+    return cols, mask, prog
+
+
+def _plain_on_cpu(cols, mask, prog):
+    """The plain version on the CPU, whose min/max keep NaN as jnp does."""
+    return smm.fused_groupby_minmax_plain({c: v.cpu() for c, v in
+                                           cols.items()}, mask.cpu(),
+                                          program=prog)
+
+
+@pytest.mark.parametrize("K,A", [(16, 3), (13, 4)])
+def test_register_tile_limit_matches_plain(session, K, A):
+    """K·(A+1) at the register-tile limit (64: the tile in registers) and
+    one past it (65: in shared memory), sums, counts, min and max."""
+    dev = torch.device("cuda", 0)
+    cols, mask, prog = _compiled_block(K, A, ["sum", "count", "min", "max"],
+                                       1 << 20, K, dev)
+    typed = for_columns(prog, cols)
+    assert specialise.skeleton(typed) == (
+        "group_regs" if K * (A + 1) <= specialise.REG_TILE
+        else "group_smem")
+    got = ops.fused_groupby_minmax(cols, mask, program=prog, tiling=None)
+    want = _plain_on_cpu(cols, mask, prog)
+    g, w = got.cpu().numpy(), want.cpu().numpy()
+    np.testing.assert_array_equal(g[:, -1], w[:, -1])
+    np.testing.assert_allclose(g, w, **TOL)
+
+
+@pytest.mark.parametrize("K", [3, 40])
+def test_minmax_special_values_match_plain(session, K):
+    """min/max over NaN, +-inf and -0.0, with group ids outside [0, K)
+    (both grouped skeletons: 3 x 3 in registers, 40 x 3 in shared
+    memory)."""
+    dev = torch.device("cuda", 0)
+    cols, mask, prog = _compiled_block(K, 2, ["min", "max"], 1 << 18,
+                                       100 + K, dev)
+    got = ops.fused_groupby_minmax(cols, mask, program=prog, tiling=None)
+    want = _plain_on_cpu(cols, mask, prog)
+    g, w = got.cpu().numpy(), want.cpu().numpy()
+    np.testing.assert_array_equal(g[:, -1], w[:, -1])
+    np.testing.assert_array_equal(np.isnan(g), np.isnan(w))
+    np.testing.assert_allclose(g, w, **TOL)
+
+
+def _q1_block(session, n=1 << 18):
+    s, _, lineitem = session
+    m = _match(s, SQLS["q1"])
+    dev = torch.device("cuda", 0)
+    cols = {c: torch.from_numpy(lineitem[c][:n]).to(dev)
+            for c in m.program.names}
+    mask = torch.ones(len(next(iter(cols.values()))), dtype=torch.bool,
+                      device=dev)
+    return m, cols, mask
+
+
+def test_q1_repeats_bit_for_bit(session):
+    """The register tile has no atomics: two Q1 calls give equal bits."""
+    m, cols, mask = _q1_block(session)
+    a = ops.fused_groupby(cols, mask, program=m.program, tiling=m.tiling)
+    b = ops.fused_groupby(cols, mask, program=m.program, tiling=m.tiling)
+    torch.cuda.synchronize()
+    assert torch.equal(a.view(torch.int64), b.view(torch.int64))
+
+
+@pytest.mark.parametrize("query", sorted(SQLS))
+def test_compiled_kernels_have_no_local_memory(session, query):
+    s, _, lineitem = session
+    m = _match(s, SQLS[query])
+    dev = torch.device("cuda", 0)
+    cols = {c: torch.from_numpy(lineitem[c][:1024]).to(dev)
+            for c in m.program.names}
+    k = specialise.kernel(for_columns(m.program, cols), dev)
+    assert k.kind == ("filter_agg" if query == "q6" else "group_regs")
+    assert k.local_bytes == 0, (query, k.regs, k.local_bytes)
+
+
+def test_second_call_compiles_nothing(session):
+    m, cols, mask = _q1_block(session, 4096)
+    ops.fused_groupby(cols, mask, program=m.program, tiling=m.tiling)
+    before = specialise.loaded()
+    ops.fused_groupby(cols, mask, program=m.program, tiling=m.tiling)
+    torch.cuda.synchronize()
+    assert specialise.loaded() == before
 
 
 @pytest.mark.parametrize("query", sorted(SQLS))

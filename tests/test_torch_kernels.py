@@ -348,16 +348,25 @@ def test_kernel_division_follows_the_reference_result_type():
             s.close()
 
 
+@pytest.mark.parametrize("query", sorted(SQLS))
+def test_scan_arms_carry_no_tiling(tpch_store, query):
+    """The scan arms' kernels compile per program and size their grid
+    from the compiled kernel's occupancy, so dispatch gives them no
+    roofline tiling: none in EXPLAIN's kernel info, none in the program
+    cache key."""
+    op = _stage0_op(*tpch_store, SQLS[query])
+    assert port_lower.kernel_info(op) == {"kernel": KERNEL[query],
+                                          "miss": None, "tiling": None}
+    assert port_lower.dispatch_signature(op)[:2] == (KERNEL[query], None)
+
+
 @pytest.mark.parametrize("make", [
-    lambda: roofline.filter_agg_tiling(n_cols=4, n_aggs=2),
-    lambda: roofline.groupby_tiling("groupby_onehot", n_cols=7, n_aggs=8,
-                                    n_groups=6),
     lambda: roofline.join_probe_tiling(n_cols=5, n_payload=1, n_aggs=2,
                                        n_groups=7),
     lambda: roofline.join_probe_tiling(n_cols=4, n_payload=2, n_aggs=2,
                                        n_groups=0),
     roofline.bloom_probe_tiling,
-], ids=["filter_agg", "groupby", "join_grouped", "join", "bloom"])
+], ids=["join_grouped", "join", "bloom"])
 def test_every_tiling_covers_whole_ctas_on_every_sm(make):
     """``resident_rows`` has one meaning for every kernel: the rows the
     whole grid covers per grid-stride step, a whole number of CTAs on

@@ -123,6 +123,9 @@ def test_generic_torch_path_matches_the_kernel_path(sessions, query):
 
 
 def _strip_tiling(text):
+    # the port's scan arms compile per program and show no tiling
+    text = re.sub(r"( kernel=(filter_agg|groupby_onehot|segmented_minmax))"
+                  r" block=\d+ resident=\d+ \(\w+-bound\)", r"\1", text)
     return re.sub(r" block=\d+ resident=\d+", "", text)
 
 
