@@ -654,6 +654,19 @@ def _device_ms(torch, call, flush, expect):
             _kernel_times(torch, call, expect, 10, flush).items()}
 
 
+def _one_launch(torch, flush, ctx, call, kernel):
+    """Fail unless one call of ``call`` launches one CUDA kernel, named
+    ``kernel``, once (torch.profiler over 10 calls)."""
+    k = _kernel_times(torch, call, {kernel: 1}, 10, flush)
+    launches = sum(n for _, n in k.values())
+    log(f"kernel {ctx}: {launches:g} CUDA launches a call ("
+        + ", ".join(f"{name[:40]} x{n:g}" for name, (_, n) in k.items())
+        + ")")
+    if launches > 1 or any(kernel not in name for name in k):
+        raise AssertionError(f"{ctx}: want one launch of {kernel} a call, "
+                             f"got {launches:g}: {sorted(k)}")
+
+
 def _hold(torch, flush, ctx, call, plain, compare, bound, info, *,
           got=None, reps=REPS, library=None, device=None):
     """One kernel at one shape: its result (``got``, where the main path
@@ -1281,6 +1294,10 @@ def sort_kernel_phase(torch, dev, state, launches, flush):
     # -- topk
     (tcols, tmask), tkw = state["topk_input"]
     sort_keys, limit, ttiling = tkw["sort_keys"], tkw["limit"], tkw["tiling"]
+    if state["sf"] == 1 and (tmask.numel() != 1 << 14 or tk.path(
+            tmask.numel(), len(sort_keys)) != tk.CLUSTER):
+        raise AssertionError(f"topk main: capacity {tmask.numel()}, want "
+                             f"2^14 on the one-launch cluster path")
 
     def tk_call(cols, m, sk=sort_keys, lim=limit):
         return ops.fused_topk(cols, m, sort_keys=sk, limit=lim,
@@ -1306,42 +1323,60 @@ def sort_kernel_phase(torch, dev, state, launches, flush):
             "p": torch.from_numpy(np.zeros(r20, np.int32)).to(dev)}
     rmask = torch.from_numpy(rng.random(r20) < 0.9).to(dev)
     rkeys = [("rev", True), ("d", False)]
+    # the CUDA kernels of one call on each path, by the profiler: the
+    # cluster path launches one; the radix path a histogram and a scatter
+    # per digit slot (dead ones return at once) and the gather
+    tk_kernels = {tk.CLUSTER: {"topk_block_kernel": 1},
+                  tk.RADIX: {"radix_scatter_kernel": 8 * len(rkeys) + 1,
+                             "gather_kernel": 1}}
     tk_results = {}
     for label, (c, m, sk) in (("2^20", (rand, rmask, rkeys)),
                               ("main", (tcols, tmask, sort_keys))):
         passes = _radix_passes(torch, m, [c[k] for k, _ in sk],
                                [bool(d) for _, d in sk])
-        log(f"kernel topk {label}: {passes} live radix passes")
+        how = tk.path(m.numel(), len(sk))
+        log(f"kernel topk {label}: {how} path, {passes} live radix passes")
+        if how == tk.CLUSTER:
+            _one_launch(torch, flush, f"topk {label}",
+                        lambda: tk_call(c, m, sk), "topk_block_kernel")
         tk_results[label] = _hold(
             torch, flush, f"topk {label}", lambda: tk_call(c, m, sk),
             lambda: tk_plain(c, m, sk), _compare_topk, tk_bound(c, m, sk),
             dict(rows=int(m.sum()), capacity=m.numel(), limit=limit,
                  sort_keys=[[k, bool(d)] for k, d in sk],
-                 radix_passes=passes))
-    # edge cases at 2^16 rows
-    n = 1 << 16
-    sub = {c: v[:n].clone() for c, v in rand.items()}
-    smask = rmask[:n].clone()
-    ties = dict(sub, rev=torch.full((n,), 3.5, dtype=torch.float64,
-                                    device=dev),
-                d=torch.full((n,), 9000, dtype=torch.int32, device=dev))
-    zeros = dict(sub, rev=torch.where(torch.arange(n, device=dev) % 2 == 0,
-                                      0.0, -0.0).to(torch.float64))
-    nan = dict(sub, k=torch.where(smask, sub["k"].double(), float("nan")))
-    nan["k"][~smask & (torch.arange(n, device=dev) % 3 == 0)] = \
-        float("inf")
-    tcases = {"ties on every sort key": (ties, smask, 10),
-              "-0.0 against +0.0 under desc": (zeros, smask, 100),
-              "limit >= the valid rows": (sub, smask, n),
-              "NaN and inf in masked rows": (nan, smask, 10),
-              "all-masked": (sub, torch.zeros_like(smask), 10)}
-    for label, (c, m, lim) in tcases.items():
-        _compare_topk(tk_call(c, m, rkeys, lim), tk_plain(c, m, rkeys, lim),
-                      f"topk {label}")
-    # the radix sort's edges: f64 keys with -0.0, NaN and ±inf, ascending
-    # and descending, over the int64 extremes and an all-equal key, at
-    # one row and one and two radix blocks
-    for n in (1, 1 << 12, 1 << 13):
+                 radix_passes=passes, path=how),
+            device=tk_kernels[how])
+    # edge cases on both sides of the cluster path's cap (2^14: one
+    # launch; 2^15 and 2^16: the radix sort)
+    tcases = {}
+    for n in (1 << 14, 1 << 15, 1 << 16):
+        sub = {c: v[:n].clone() for c, v in rand.items()}
+        smask = rmask[:n].clone()
+        ties = dict(sub, rev=torch.full((n,), 3.5, dtype=torch.float64,
+                                        device=dev),
+                    d=torch.full((n,), 9000, dtype=torch.int32, device=dev))
+        zeros = dict(sub, rev=torch.where(
+            torch.arange(n, device=dev) % 2 == 0, 0.0, -0.0).to(
+                torch.float64))
+        nan = dict(sub, k=torch.where(smask, sub["k"].double(),
+                                      float("nan")))
+        nan["k"][~smask & (torch.arange(n, device=dev) % 3 == 0)] = \
+            float("inf")
+        how = tk.path(n, len(rkeys))
+        for label, (c, m, lim) in {
+                "ties on every sort key": (ties, smask, 10),
+                "-0.0 against +0.0 under desc": (zeros, smask, 100),
+                "limit >= the valid rows": (sub, smask, n),
+                "NaN and inf in masked rows": (nan, smask, 10),
+                "all-masked": (sub, torch.zeros_like(smask), 10)}.items():
+            lab = f"{n} rows ({how}), {label}"
+            _compare_topk(tk_call(c, m, rkeys, lim),
+                          tk_plain(c, m, rkeys, lim), f"topk {lab}")
+            tcases[lab] = None
+    # the sort's edges: f64 keys with -0.0, NaN and ±inf, ascending and
+    # descending, over the int64 extremes and an all-equal key, at one
+    # row, 2^12 and 2^13 rows (one launch) and 2^15 (the radix sort)
+    for n in (1, 1 << 12, 1 << 13, 1 << 15):
         ec = {name: torch.from_numpy(_edge_key(np, rng, name, n)).to(dev)
               for name in ("f64", "extremes", "equal")}
         em = torch.from_numpy(rng.random(n) < 0.9).to(dev)
@@ -1711,7 +1746,11 @@ def _standalone_cases(torch, dev, state):
             _close(dict(atol=1e-3, rtol=1e-4)),
             lambda got, K=K: _bound(4 * n + 4 * n * A + 4 * K * A, n * A,
                                     FP32_FLOPS),
-            dict(rows=n, K=K, A=A), library=library))
+            dict(rows=n, K=K, A=A, path=go.onehot_layout(K, A)[0]),
+            library=library,
+            device={("onehot_regs_kernel"
+                     if go.onehot_layout(K, A)[0] == "registers"
+                     else "onehot_warps_kernel"): 1, "fold_kernel": 1}))
     return cases
 
 
@@ -1765,6 +1804,15 @@ def standalone_kernel_phase(torch, ext, dev, state, flush):
     if not np.array_equal(got[:, -1].cpu().numpy(),
                           np.bincount(q1_gid, minlength=6)):
         raise AssertionError(f"groupby_onehot Q1 counts {got[:, -1]}")
+    # the register path (K·A <= 64) sums in a fixed order: a second call
+    # gives the same bits
+    case, _ = by_label["Q1 K6"]
+    again = case["call"]()
+    if not torch.equal(again.view(torch.int32), got.view(torch.int32)):
+        raise AssertionError("groupby_onehot Q1 K6: a second call gave "
+                             "other bits")
+    log(f"kernel groupby_onehot Q1 K6: {case['info']['path']} path, a "
+        f"second call gave the same bits")
     kept = li["l_shipdate"] <= date_to_int("1998-09-02")
     filtered = torch.from_numpy(np.where(kept, q1_gid, -1).astype(
         np.int32)).to(dev)

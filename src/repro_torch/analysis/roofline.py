@@ -29,7 +29,9 @@ in VMEM, which capped the rows they took (``resident_sort_tiling``).
 Here the radix sort runs in global memory and stages only blocks in
 shared memory (:func:`sort_tiling`), so what caps the rows is the
 kernels' int32 positions and segment counts (``SORT_MAX_ROWS``, the
-largest power of two they hold), past which their wrappers raise.
+largest power of two they hold), past which their wrappers raise. A
+top-k batch of at most 2^14 rows sorts in the shared memory of one
+thread-block cluster instead (:func:`topk_block_rows`).
 
 Constants: NVIDIA H100 SXM5 80 GB (data sheet and Hopper tuning guide):
 132 SMs, 227 KB of shared memory usable by one block out of 228 KB per
@@ -68,6 +70,10 @@ SORT_MAX_AGGS = 8               # sortnet.cuh kMaxScanAggs
 SORT_MAX_TILE = 1 << 12         # rows of a radix block in shared memory
 _LANE_BYTES = 8                 # one encoded u64 key lane
 _POS_BYTES = 4                  # the int32 position
+TOPK_BLOCK_THREADS = 256        # block_sort.cuh kBlockThreads: a CTA
+TOPK_CTA_ROWS = 1024            # kCtaRows: rows a CTA of the cluster holds
+TOPK_CLUSTER_CTAS = 16          # kClusterMax: Hopper's largest cluster
+_TOPK_ROW_BITS = 14             # kInvBit: a row index below the flag
 
 
 def machine_balance() -> float:
@@ -207,6 +213,23 @@ def sort_tiling(kernel: str, *, n_keys: int) -> KernelTiling:
     dominant = "compute" if ai >= machine_balance() else "memory"
     return KernelTiling(kernel, block, SORT_MAX_ROWS, block * row, flops,
                         bpr, ai, dominant)
+
+
+def topk_block_rows(n_keys: int) -> int:
+    """Largest capacity the top-k sorts in one launch of one thread-block
+    cluster (``csrc/block_sort.cuh``), with ``n_keys`` sort keys; the
+    top-k takes larger batches with the radix sort of :func:`sort_tiling`.
+    Each CTA of the cluster holds the permutation entries of
+    ``TOPK_CTA_ROWS`` rows and the current lane's encoded value of every
+    row in shared memory (8 bytes a row whatever the number of keys: a
+    lane is re-encoded from its column when the sort reaches it; 142 KB
+    a CTA at 2^14 rows with the digit counts), and a permutation entry
+    packs the row in ``_TOPK_ROW_BITS`` bits: 16 CTAs × 1024 = 2^14
+    rows, TPC-H Q3's final at SF 1. 0 for a key count the kernels do not
+    take."""
+    if not 1 <= n_keys < SORT_MAX_LANES:
+        return 0
+    return min(TOPK_CLUSTER_CTAS * TOPK_CTA_ROWS, 1 << _TOPK_ROW_BITS)
 
 
 def onehot_group_capacity(n_aggs: int = 4) -> int:

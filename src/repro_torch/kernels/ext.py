@@ -65,7 +65,7 @@ SOURCES = {
     "flash_attention": "flash_attention.cu",
     "ssd_scan": "ssd_scan.cu",
 }
-HEADERS = ("scan_agg.cuh", "sortnet.cuh", "cuda_error.cuh")
+HEADERS = ("scan_agg.cuh", "sortnet.cuh", "block_sort.cuh", "cuda_error.cuh")
 NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
@@ -95,10 +95,16 @@ _ARGTYPES = {
              _L, _P, _P],
     "filter_agg_q6": [_P, _P, _P, _P, _L, _I, _I, _F, _F, _F, _P, _P, _I,
                       _P],
-    "groupby_onehot": [_P, _P, _L, _I, _I, _P, _P, _I, _P],
+    "groupby_onehot": [_P, _P, _L, _I, _I, _P, _P, _I, _I, _I, _P],
     "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
                         _P],
     "ssd_scan": [_P] * 10 + [_I] * 7 + [_P],
+}
+# a library's other entry points: the top-k's one-launch path takes the
+# mask and rows, the keys, the columns, positions scratch, limit and mask
+_MORE_ARGTYPES = {
+    "topk": {"topk_block_launch": [_P, _L, _P, _P, _P, _I, _P, _P, _P, _I,
+                                   _P, _L, _P, _P]},
 }
 
 _lock = threading.Lock()
@@ -241,9 +247,12 @@ def library(name: str) -> ctypes.CDLL:
         lib = _libs.get(name)
         if lib is None:
             lib = ctypes.CDLL(str(_lib_path(name)))
-            fn = getattr(lib, f"{name}_launch")
-            fn.argtypes = _ARGTYPES[name]
-            fn.restype = ctypes.c_int
+            entries = {f"{name}_launch": _ARGTYPES[name],
+                       **_MORE_ARGTYPES.get(name, {})}
+            for fname, argtypes in entries.items():
+                fn = getattr(lib, fname)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
             lib.kernel_error_string.argtypes = [ctypes.c_int]
             lib.kernel_error_string.restype = ctypes.c_char_p
             _libs[name] = lib

@@ -15,7 +15,10 @@ run here.
 :func:`groupby_onehot_cuda` / :func:`groupby_onehot_plain` are the
 fixed-layout benchmark kernel (``groupby_onehot``): float32 grouped sums
 of an (n, A) matrix by an int32 group id, (K, A) out
-(``csrc/groupby_onehot.cu``). A group id outside [0, K) reaches no group,
+(``csrc/groupby_onehot.cu``), each thread's tile in registers where K·A
+<= ``REGISTER_TILE``, else a tile per warp in shared memory
+(:func:`onehot_layout`); both sum in a fixed order, so a call repeats
+bit for bit. A group id outside [0, K) reaches no group,
 as its one-hot row is all zero in the reference. (The reference's matmul
 also spreads a NaN value to every group, 0 · NaN; here it reaches only
 its own.)
@@ -33,8 +36,10 @@ from repro_torch.kernels.segmented_minmax import grouped_plain, launch_grouped
 NAME = "groupby"
 NAME_ONEHOT = "groupby_onehot"
 BLOCK_ROWS = 1024        # the reference's tile; the CUDA kernel picks its own
-THREADS = 256
-CTAS_PER_SM = 8
+THREADS = 256            # the partials: at most a CTA per THREADS rows
+CTAS_PER_SM = 8          # and CTAS_PER_SM an SM (the kernel may take fewer)
+REGISTER_TILE = 64       # csrc kRegTile: K·A up to this in registers
+MAX_WARPS = 8            # csrc kMaxWarps: per-warp tiles a CTA
 
 
 def _check(program: Program) -> None:
@@ -76,12 +81,31 @@ def groupby_onehot_plain(group_ids, values, *, n_groups: int,
     return sums.view(nb, n_groups, A).sum(0)
 
 
+def onehot_layout(n_groups: int, n_cols: int) -> tuple[str, int]:
+    """The kernel's path for a (K, A) tile and its warps a CTA:
+    ``("registers", 8)`` where K·A <= ``REGISTER_TILE`` (each thread's tile
+    in registers), else ``("warps", w)``: one (K, A) float32 tile per warp
+    in shared memory, for as many warps as fit one block's shared memory,
+    at most ``MAX_WARPS``. Raises where not even one tile fits."""
+    K, A = int(n_groups), int(n_cols)
+    if A < 1 or K < 1:
+        raise ValueError(f"({K}, {A}) tile: want K >= 1 and A >= 1")
+    if K * A <= REGISTER_TILE:
+        return "registers", MAX_WARPS
+    fit = smem_budget_bytes() // (4 * K * A)
+    if fit < 1:
+        raise ValueError(f"({K}, {A}) float32 tile: want K * A * 4 <= "
+                         f"{smem_budget_bytes()} bytes of shared memory")
+    return "warps", min(MAX_WARPS, fit)
+
+
 def groupby_onehot_cuda(group_ids, values, *, n_groups: int,
                         block: int = BLOCK_ROWS) -> torch.Tensor:
     """The kernel of :func:`groupby_onehot_plain`. Takes a contiguous
     (n,) int32 and a contiguous (n, A) float32 CUDA tensor and raises on
     anything else, or where the (K, A) float32 tile exceeds one block's
-    shared memory; ``block`` is accepted for the reference's signature."""
+    shared memory (:func:`onehot_layout`); ``block`` is accepted for the
+    reference's signature."""
     del block
     n = int(group_ids.shape[0])
     if group_ids.dtype != torch.int32 or group_ids.dim() != 1 \
@@ -96,9 +120,7 @@ def groupby_onehot_cuda(group_ids, values, *, n_groups: int,
                          f"{tuple(values.shape)} {values.dtype} on "
                          f"{values.device}")
     A, K = int(values.shape[1]), int(n_groups)
-    if A < 1 or K < 1 or K * A * 4 > smem_budget_bytes():
-        raise ValueError(f"({K}, {A}) float32 tile: want 1 <= K * A * 4 <= "
-                         f"{smem_budget_bytes()} bytes of shared memory")
+    path, warps = onehot_layout(K, A)
     lib = ext.library(NAME_ONEHOT)
     dev = group_ids.device
     ctas = max(1, min(ext.sm_count(dev) * CTAS_PER_SM, -(-n // THREADS)))
@@ -106,8 +128,8 @@ def groupby_onehot_cuda(group_ids, values, *, n_groups: int,
     out = torch.empty((K, A), dtype=torch.float32, device=dev)
     rc = lib.groupby_onehot_launch(
         group_ids.data_ptr(), values.data_ptr(), n, A, K,
-        partials.data_ptr(), out.data_ptr(), ctas,
-        torch.cuda.current_stream(dev).cuda_stream)
+        partials.data_ptr(), out.data_ptr(), ctas, warps,
+        int(path == "registers"), torch.cuda.current_stream(dev).cuda_stream)
     ext.check(lib, rc, NAME_ONEHOT)
     ext.count_launch(NAME_ONEHOT)
     return out

@@ -11,22 +11,37 @@ runs on the surviving rows; the stable order makes the pre-selection
 idempotent under it.
 
 The caller folds the predicate into ``mask`` first.
-:func:`fused_topk_cuda` launches ``csrc/topk.cu`` (the radix sort of
-``csrc/sortnet.cuh``, then one gather);
-:func:`fused_topk_plain` is the same function in plain torch, for CPU
-tensors and as the yardstick on the card.
+:func:`fused_topk_cuda` launches ``csrc/topk.cu`` on one of two paths
+(:func:`path`): up to ``roofline.topk_block_rows`` rows (TPC-H Q3's
+final, capacity 2^14) one launch of one thread-block cluster (up to 16
+CTAs of 1024 rows) sorts the batch in shared memory and gathers every
+column (``csrc/block_sort.cuh``); above it the radix sort of
+``csrc/sortnet.cuh`` in global memory, then one gather.
+Both give the same permutation. :func:`fused_topk_plain` is the same
+function in plain torch, for CPU tensors and as the yardstick on the
+card.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.analysis.roofline import SORT_MAX_LANES, SORT_MAX_ROWS
+from repro_torch.analysis.roofline import (SORT_MAX_LANES, SORT_MAX_ROWS,
+                                          topk_block_rows)
 from repro_torch.kernels import ext
 from repro_torch.kernels.program import DTYPE_CODES
 from repro_torch.kernels.sortnet import lexsort_order, radix_scratch_bytes
 
 NAME = "topk"
+CLUSTER, RADIX = "cluster", "radix"
+GATHER_COLUMNS = 32      # topk.cu kMaxGather: columns a launch gathers
+
+
+def path(n: int, n_keys: int) -> str:
+    """The path :func:`fused_topk_cuda` takes for capacity ``n`` and
+    ``n_keys`` sort keys: ``CLUSTER`` (one launch) up to
+    ``roofline.topk_block_rows``, else ``RADIX``."""
+    return CLUSTER if n <= topk_block_rows(n_keys) else RADIX
 
 
 def _names(columns: dict, sort_keys: list) -> list:
@@ -77,20 +92,31 @@ def fused_topk_cuda(columns: dict, mask, *, sort_keys: list, limit: int,
             raise TypeError(f"column {c!r}: dtype {t.dtype} unsupported")
     keys = src[:len(sort_keys)]
     dst = [torch.empty_like(t) for t in src]
-    lanes = torch.empty((len(keys) + 1, n), dtype=torch.int64, device=dev)
-    pos = torch.empty((n,), dtype=torch.int32, device=dev)
-    nbytes = radix_scratch_bytes(n, len(keys) + 1, tiling.block_rows)
-    scratch = torch.empty((nbytes,), dtype=torch.uint8, device=dev)
     out_mask = torch.empty((n,), dtype=torch.bool, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.topk_launch(
-        mask.data_ptr(), n, ext.ptr_array(keys),
-        ext.int_array([DTYPE_CODES[k.dtype] for k in keys]),
-        ext.int_array([int(desc) for _, desc in sort_keys]), len(keys),
-        ext.ptr_array(list(lanes)), pos.data_ptr(), tiling.block_rows,
-        scratch.data_ptr(), nbytes, ext.ptr_array(src), ext.ptr_array(dst),
-        ext.int_array([t.element_size() for t in src]), len(src),
-        int(limit), out_mask.data_ptr(), stream)
+    key_args = (ext.ptr_array(keys),
+                ext.int_array([DTYPE_CODES[k.dtype] for k in keys]),
+                ext.int_array([int(desc) for _, desc in sort_keys]),
+                len(keys))
+    col_args = (ext.ptr_array(src), ext.ptr_array(dst),
+                ext.int_array([t.element_size() for t in src]), len(src))
+    if path(n, len(keys)) == CLUSTER:
+        pos = torch.empty((n,), dtype=torch.int32, device=dev) \
+            if len(src) > GATHER_COLUMNS else None
+        rc = lib.topk_block_launch(
+            mask.data_ptr(), n, *key_args, *col_args,
+            pos.data_ptr() if pos is not None else None, int(limit),
+            out_mask.data_ptr(), stream)
+    else:
+        lanes = torch.empty((len(keys) + 1, n), dtype=torch.int64,
+                            device=dev)
+        pos = torch.empty((n,), dtype=torch.int32, device=dev)
+        nbytes = radix_scratch_bytes(n, len(keys) + 1, tiling.block_rows)
+        scratch = torch.empty((nbytes,), dtype=torch.uint8, device=dev)
+        rc = lib.topk_launch(
+            mask.data_ptr(), n, *key_args, ext.ptr_array(list(lanes)),
+            pos.data_ptr(), tiling.block_rows, scratch.data_ptr(), nbytes,
+            *col_args, int(limit), out_mask.data_ptr(), stream)
     ext.check(lib, rc, NAME)
     ext.count_launch(NAME)
     return dict(zip(names, dst)), out_mask

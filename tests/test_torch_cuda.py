@@ -566,12 +566,13 @@ def test_sort_agg_radix_edge_cases_match_plain(card, capacity, kinds):
                                    equal_nan=True, **TOL)
 
 
-@pytest.mark.parametrize("capacity", [1, 1 << 12, 1 << 13])
+@pytest.mark.parametrize("capacity", [1, 1 << 12, 1 << 13, 1 << 15])
 @pytest.mark.parametrize("descending", [False, True])
 def test_topk_radix_float_keys_match_plain(card, capacity, descending):
     """f64 sort keys with -0.0, NaN and ±inf, ascending and descending,
     over int64 extremes and all-equal columns, lane for lane (floats bit
-    for bit) against the plain version."""
+    for bit) against the plain version: on the one-launch cluster path up
+    to 2^13 rows, on the radix sort at 2^15."""
     rng = np.random.default_rng(capacity + descending)
     dev = torch.device("cuda", 0)
     f = rng.normal(size=capacity).round(1)
@@ -597,6 +598,107 @@ def test_topk_radix_float_keys_match_plain(card, capacity, descending):
             if g.is_floating_point():
                 g, w = g.view(torch.int64), w.view(torch.int64)
             assert torch.equal(g, w), (sort_keys, c)
+
+
+def _topk_edge_cases(capacity: int, rng, dev):
+    """(label, columns, mask, limit) of the top-k's edge cases at one
+    capacity, sorted by ``rev`` descending then ``d``: all ties, -0.0
+    against +0.0 under descending, NaN and inf in masked rows, every row
+    masked, a limit at or past the valid rows."""
+    base = {"rev": torch.from_numpy(rng.normal(size=capacity).round(1)).to(
+                dev),
+            "d": torch.from_numpy(rng.integers(0, 5, capacity).astype(
+                np.int32)).to(dev),
+            "k": torch.from_numpy(rng.integers(0, 1 << 40, capacity)).to(
+                dev)}
+    mask = torch.from_numpy(rng.random(capacity) < 0.9).to(dev)
+    idx = torch.arange(capacity, device=dev)
+    ties = dict(base, rev=torch.full((capacity,), 3.5, dtype=torch.float64,
+                                     device=dev),
+                d=torch.full((capacity,), 7, dtype=torch.int32, device=dev))
+    zeros = dict(base, rev=torch.where(idx % 2 == 0, 0.0, -0.0).to(
+        torch.float64))
+    nan = dict(base, rev=torch.where(mask, base["rev"], float("nan")))
+    nan["rev"][~mask & (idx % 3 == 0)] = float("inf")
+    return [("ties", ties, mask, 10), ("-0.0/+0.0 desc", zeros, mask, 100),
+            ("NaN and inf masked", nan, mask, 10),
+            ("all masked", base, torch.zeros_like(mask), 10),
+            ("limit >= valid", base, mask, capacity)]
+
+
+def _assert_topk_equal(got, want, ctx):
+    (gcols, gmask), (wcols, wmask) = got, want
+    assert list(gcols) == list(wcols) and torch.equal(gmask, wmask), ctx
+    for c in wcols:
+        g, w = gcols[c], wcols[c]
+        assert g.dtype == w.dtype, (ctx, c)
+        if g.is_floating_point():           # bit for bit, -0.0 and NaN too
+            g, w = g.view(torch.int64), w.view(torch.int64)
+        assert torch.equal(g, w), (ctx, c)
+
+
+@pytest.mark.parametrize("capacity", [1, 1 << 13, 1 << 14, 1 << 15])
+def test_topk_on_both_sides_of_the_cluster_cap_matches_plain(card,
+                                                             capacity):
+    """The one-launch cluster path up to roofline.topk_block_rows (2^14
+    with two keys: 16 CTAs; 2^13: 8; one row: 1), the radix path one power
+    of two past it: every edge case lane for lane, masked lanes included,
+    against the plain version."""
+    rng = np.random.default_rng(capacity)
+    sort_keys = [("rev", True), ("d", False)]
+    want_path = tk.CLUSTER if capacity <= 1 << 14 else tk.RADIX
+    assert tk.path(capacity, len(sort_keys)) == want_path
+    tiling = roofline.sort_tiling("topk", n_keys=2)
+    for label, cols, mask, limit in _topk_edge_cases(capacity, rng, card):
+        got = _launched("topk", lambda: ops.fused_topk(
+            cols, mask, sort_keys=sort_keys, limit=limit, tiling=tiling))
+        _assert_topk_equal(got, tk.fused_topk_plain(
+            cols, mask, sort_keys=sort_keys, limit=limit), label)
+
+
+def test_topk_cluster_path_gathers_more_than_one_launch_of_columns(card):
+    """40 columns of every width on the cluster path: the kernel gathers
+    the first 32, a gather launch the rest, by the positions it wrote."""
+    rng = np.random.default_rng(40)
+    n = 1 << 12
+    dtypes = [np.float64, np.int64, np.float32, np.int32, np.int16,
+              np.int8, np.bool_]
+    cols = {f"c{j}": torch.from_numpy(
+        (rng.integers(-50, 50, n)).astype(dtypes[j % len(dtypes)])).to(card)
+        for j in range(40)}
+    mask = torch.from_numpy(rng.random(n) < 0.7).to(card)
+    sort_keys = [("c1", True), ("c0", False)]
+    got = _launched("topk", lambda: ops.fused_topk(
+        cols, mask, sort_keys=sort_keys, limit=25,
+        tiling=roofline.sort_tiling("topk", n_keys=2)))
+    _assert_topk_equal(got, tk.fused_topk_plain(
+        cols, mask, sort_keys=sort_keys, limit=25), "40 columns")
+
+
+def test_topk_at_q3s_capacity_is_one_cuda_launch(card):
+    """A call at 2^14 rows and two keys (TPC-H Q3's final at SF 1) runs
+    one CUDA kernel, once (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.default_rng(14)
+    n = 1 << 14
+    cols = {"rev": torch.from_numpy(rng.normal(size=n) * 1e5).to(card),
+            "d": torch.from_numpy(rng.integers(8000, 10000, n).astype(
+                np.int32)).to(card),
+            "k": torch.from_numpy(rng.integers(0, 1 << 40, n)).to(card)}
+    mask = torch.from_numpy(rng.random(n) < 0.7).to(card)
+    call = lambda: ops.fused_topk(  # noqa: E731
+        cols, mask, sort_keys=[("rev", True), ("d", False)], limit=10,
+        tiling=roofline.sort_tiling("topk", n_keys=2))
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.name.startswith(("Memcpy", "Memset"))]
+    assert [e.name.split("(")[0] for e in kernels] == \
+        ["sortnet::topk_block_kernel"], [e.name for e in kernels]
 
 
 SORTAGG_SQL = ("select l_orderkey, sum(l_quantity) as s, count(*) as c "
@@ -676,7 +778,10 @@ def test_filter_agg_q6_kernel_matches_plain(card, n):
     np.testing.assert_allclose(float(got[0]), float(want[0]), rtol=1e-4)
 
 
-@pytest.mark.parametrize("n,K,A", [(5000, 6, 5), (1 << 20, 120, 5)])
+@pytest.mark.parametrize("n,K,A", [(5000, 6, 5), (1 << 20, 120, 5),
+                                   (70_001, 1, 1), (70_001, 6, 5),
+                                   (70_001, 8, 8), (70_001, 13, 5),
+                                   (70_001, 120, 5)])
 def test_groupby_onehot_kernel_matches_plain(card, n, K, A):
     rng = np.random.default_rng(n + K)
     gid = rng.integers(-1, K + 1, n).astype(np.int32)   # -1 and K: no group
@@ -688,6 +793,22 @@ def test_groupby_onehot_kernel_matches_plain(card, n, K, A):
     want = go.groupby_onehot_plain(gid, vals, n_groups=K)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                atol=1e-3, rtol=1e-4)
+
+
+@pytest.mark.parametrize("K,A", [(6, 5), (8, 8)])
+def test_groupby_onehot_register_path_repeats_bit_for_bit(card, K, A):
+    """K·A <= 64 runs the register tile, whose sums take a fixed order:
+    two calls give equal bits."""
+    assert go.onehot_layout(K, A)[0] == "registers"
+    rng = np.random.default_rng(K * A)
+    n = 1 << 21
+    gid = torch.from_numpy(rng.integers(-1, K + 1, n).astype(
+        np.int32)).to(card)
+    vals = torch.from_numpy(rng.standard_normal((n, A)).astype(
+        np.float32) * 100).to(card)
+    a = ops.groupby_onehot(gid, vals, n_groups=K)
+    b = ops.groupby_onehot(gid, vals, n_groups=K)
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
