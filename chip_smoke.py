@@ -25,9 +25,11 @@ fragment of each kernel pipeline ran its CUDA kernel, that no stage of
 these queries waits for a kernel of a later slice, and that the rows
 equal the port's oracle; then it holds each kernel against its plain
 torch version at the main path's shapes (plus the first 2^20 rows, the
-whole table and the edge cases) and times both; for the scan and join
-kernels also the profiler's device time of each kernel a call launches
-beside the event window, and for the join the same rows through the
+whole table and the edge cases) and times both; for the scan, join and
+Bloom kernels also the profiler's device time of each kernel a call
+launches beside the event window (a Bloom call must be one CUDA launch,
+and the share of valid rows past the filter's first probe is logged),
+and for the join the same rows through the
 other forms of its program (unsplit, a probe predicate that rejects or
 accepts every row, the residual alone). Then the path of the four
 kernels no query reaches: it drives ``repro_torch.kernels.ops``'
@@ -35,11 +37,13 @@ kernels no query reaches: it drives ``repro_torch.kernels.ops``'
 window), ``ssd_scan`` (mamba2-130m, hymba-1.5b's mixer, and the chunk-
 parallel split's edges: one chunk, chunk 1024, S not a multiple of the
 chunk, one head), ``filter_agg`` (TPC-H Q6 over the SF 1 lineitem
-columns, against the query's revenue) and ``groupby_onehot`` (Q1's group
-id) with their launch counts reset, then holds each against its plain
-version and times it beside its bound and, where one PyTorch call
-computes the same function, that call; the SSD scan also with each
-phase's device time and its executed against its needed operations.
+columns, against the query's revenue; then at 1, 3 and 1,000,003 rows
+and as views at storage offset 1, and a second call's bits) and
+``groupby_onehot`` (Q1's group id) with their launch counts reset, then
+holds each against its plain version and times it beside its bound and,
+where one PyTorch call computes the same function, that call; the SSD
+scan, Q6 and the grouped sums also with each kernel's device time, the
+SSD scan with its executed against its needed operations.
 Before the kernel phases, a profile of the sort-aggregate's and the bf16
 attention's main calls, kernel by kernel (torch.profiler). Exits nonzero
 on any failure. The last two lines are JSON: the kernel table, then
@@ -1033,10 +1037,8 @@ def bloom_kernel_phase(torch, dev, state, launches, flush):
     import numpy as np
     from repro_torch.exec.batch import bucket_capacity, from_numpy
     from repro_torch.kernels import bloom, ops
-    from repro_torch.analysis import roofline
 
     lineitem, orders = state["lineitem"], state["tables"]["orders"]
-    tiling = roofline.bloom_probe_tiling()
     n_total = len(lineitem["l_orderkey"])
     spec = state["bloom_spec"]
     key = spec["semijoin"]["key"][0]
@@ -1046,7 +1048,7 @@ def bloom_kernel_phase(torch, dev, state, launches, flush):
 
     def call(keys, mask, words=main_words, bits=f["bits"]):
         return ops.fused_bloom_filter(keys, mask, words=words, bits=bits,
-                                      k=f["k"], tiling=tiling)
+                                      k=f["k"], tiling=None)
 
     def plain(keys, mask, words=main_words, bits=f["bits"]):
         return bloom.fused_bloom_filter_plain(keys, mask, words=words,
@@ -1069,31 +1071,80 @@ def bloom_kernel_phase(torch, dev, state, launches, flush):
         results[label] = _hold(
             torch, flush, f"{kind} {label}", lambda: call(keys, mask),
             lambda: plain(keys, mask), _equal, bound,
-            dict(rows=n, capacity=mask.numel(), bits=f["bits"]))
+            dict(rows=n, capacity=mask.numel(), bits=f["bits"]),
+            device={"bloom_kernel": 1})
+        if label == "main":
+            _one_launch(torch, flush, f"{kind} main",
+                        lambda: call(keys, mask), "bloom_kernel")
+            # where the time goes: the same rows against empty filters
+            # (every valid row reads one word and stops there), from one
+            # that L1 holds to one past the main filter
+            for bits in (1 << 10, 1 << 20, f["bits"], 1 << 22):
+                empty = torch.zeros(bits // 32, dtype=torch.int32,
+                                    device=dev)
+                if bool(call(keys, mask, empty, bits).any()):
+                    raise AssertionError(f"{kind}: hit in an empty filter")
+                ms = _time_ms(torch, lambda: call(keys, mask, empty, bits),
+                              flush)
+                dms = sum(_device_ms(torch, lambda: call(keys, mask, empty,
+                                                         bits),
+                                     flush, {"bloom_kernel": 1}).values())
+                log(f"kernel {kind} main, empty filter of {bits} bits "
+                    f"({bits // 8} B): {ms * 1e3:.1f} us, device "
+                    f"{dms * 1e3:.1f} us")
+            # the second wave's share: valid rows whose first bit is set
+            # (a probe with k = 1 tests the first position alone)
+            n_valid = int(mask.sum())
+            first = int((bloom.bloom_probe_plain(keys, main_words, f["bits"],
+                                                 k=1) & mask).sum())
+            hits = int(plain(keys, mask).sum())
+            share = first / max(n_valid, 1)
+            log(f"kernel {kind} main: {first} of {n_valid} valid rows "
+                f"({100 * share:.2f}%) pass the first probe and go on to "
+                f"the second wave; {hits} pass all {f['k']}")
         del blk, keys, mask
-    # edge cases: negative keys and keys ≥ 2^32 (truncated mod 2^32),
-    # filters of 2^10 and 2^22 bits, an all-masked block
+    # edge cases: negative keys and keys ≥ 2^32 (truncated mod 2^32), as
+    # int64 and as int32, against filters of 2^10, 2^20, 2^21 and 2^22
+    # bits; whole, a length that is no multiple of the vector path's
+    # chunk (a random mask) and a view at storage offset 1 (the scalar
+    # loop); an all-masked block
     base = lineitem[key][:1 << 20].astype(np.int64)
     q = base.size // 4
     odd = np.concatenate([-base[:q], base[:q] + (1 << 32),
                           base[:q] - (1 << 40), base[:base.size - 3 * q]
                           * 7919])
-    keys = torch.from_numpy(odd).to(dev)
-    mask = torch.ones(odd.size, dtype=torch.bool, device=dev)
+    ragged = odd.size - 3
+    m_np = np.random.default_rng(0).random(odd.size) < 0.9
+    masks = {"whole": (slice(None), np.ones(odd.size, bool)),
+             f"{ragged} rows": (slice(0, ragged), m_np),
+             "offset 1": (slice(1, None), m_np)}
     members = orders["o_orderkey"][::3].astype(np.uint32)
-    for bits in (1 << 10, 1 << 22):
+    for bits in (1 << 10, 1 << 20, 1 << 21, 1 << 22):
         words = bloom.bloom_build(members, bits)
         w = bloom.words_tensor(words, dev)
-        got = call(keys, mask, w, bits)
-        _equal(got, plain(keys, mask, w, bits), f"{kind} {bits} bits")
-        host = bloom.bloom_probe_np(odd.astype(np.uint32), words, bits)
-        if not np.array_equal(got.cpu().numpy(), host):
-            raise AssertionError(f"{kind} {bits} bits: != host probe")
-    _equal(call(keys, torch.zeros_like(mask)),
-           plain(keys, torch.zeros_like(mask)), f"{kind} all-masked")
-    log(f"kernel {kind}: negative and >= 2^32 keys at 2^10 and 2^22 bits "
-        f"(= plain = host probe), all-masked = plain")
-    return _table_row(kind, launches, results, "main", bits=f["bits"])
+        hit = bloom.bloom_probe_np(odd.astype(np.uint32), words, bits)
+        for dtype in (np.int64, np.int32):
+            kt = torch.from_numpy(odd.astype(dtype)).to(dev)
+            for label, (sl, m) in masks.items():
+                keys, mask = kt[sl], torch.from_numpy(m).to(dev)[sl]
+                ctx = f"{kind} {bits} bits {dtype.__name__} {label}"
+                if bloom.vector_layout(keys.data_ptr(), keys.element_size(),
+                                       mask.data_ptr(), 0, keys.numel())[0] \
+                        == (label == "offset 1"):
+                    raise AssertionError(f"{ctx}: wrong path")
+                got = call(keys, mask, w, bits)
+                _equal(got, plain(keys, mask, w, bits), ctx)
+                if not np.array_equal(got.cpu().numpy(), hit[sl] & m[sl]):
+                    raise AssertionError(f"{ctx}: != host probe")
+    keys = torch.from_numpy(odd).to(dev)
+    none = torch.zeros(odd.size, dtype=torch.bool, device=dev)
+    _equal(call(keys, none), plain(keys, none), f"{kind} all-masked")
+    log(f"kernel {kind}: negative and >= 2^32 keys, int64 and int32, at "
+        f"2^10, 2^20, 2^21 and 2^22 bits, {odd.size} and {ragged} rows "
+        f"and a view at offset 1 (the scalar loop) (= plain = host "
+        f"probe), all-masked = plain")
+    return _table_row(kind, launches, results, "main", bits=f["bits"],
+                      first_probe_share=share)
 
 
 # -- the sort kernels ---------------------------------------------------------
@@ -1719,8 +1770,14 @@ def _standalone_cases(torch, dev, state):
         "filter_agg", "Q6 SF1 lineitem",
         lambda: ops.filter_agg(*cols, **q6),
         lambda: fa.filter_agg_plain(*cols, **q6), _close_q6,
-        lambda got: _bound(16 * n + 8, 7 * n, FP32_FLOPS),
-        dict(rows=n, **q6)))
+        # bytes: the predicate's three columns on every row, the price on
+        # the rows that pass (the count), the (2,) result
+        lambda got: _bound(_first_use_bytes(
+            [(("ship", "disc", "qty"), n), (("price",), int(got[1]))],
+            lambda c, rows: 4 * rows) + 8, 7 * n, FP32_FLOPS),
+        dict(rows=n, **q6),
+        # one launch: the last CTA folds the partials
+        device={"q6_kernel": 1}))
 
     # grouped sums: Q1's group id (returnflag × linestatus, K = 6) and a
     # K = 120 id, over (quantity, price, discount, tax, 1)
@@ -1752,6 +1809,43 @@ def _standalone_cases(torch, dev, state):
                      if go.onehot_layout(K, A)[0] == "registers"
                      else "onehot_warps_kernel"): 1, "fold_kernel": 1}))
     return cases
+
+
+def _q6_edges(torch, dev, li, case, got, passes):
+    """The fixed-layout Q6 kernel at its edges, each against the plain
+    version (the count exact, the revenue within rtol 1e-4): 1, 3 and
+    1,000,003 rows on the vector path (a ragged tail), the same as views
+    at storage offset 1 (the scalar loop), each starting at a row that
+    passes (``passes``, the predicate over the table), and the whole
+    table at offset 1; and a second call at the main shape, which must
+    give the same bits as ``got``."""
+    import numpy as np
+    from repro_torch.kernels import filter_agg as fa
+    from repro_torch.kernels import ops
+
+    b = {k: case["info"][k]
+         for k in ("date_lo", "date_hi", "disc_lo", "disc_hi", "qty_hi")}
+    again = case["call"]()
+    if not torch.equal(again.view(torch.int32), got.view(torch.int32)):
+        raise AssertionError(f"filter_agg Q6: a second call gave other "
+                             f"bits, {again.tolist()} != {got.tolist()}")
+    cols = [torch.from_numpy(li[c].astype(t)).to(dev) for c, t in (
+        ("l_shipdate", np.int32), ("l_discount", np.float32),
+        ("l_quantity", np.float32), ("l_extendedprice", np.float32))]
+    rows = np.flatnonzero(passes)
+    at = {0: int(rows[rows % 4 == 0][0]), 1: int(rows[rows % 4 == 1][0])}
+    n = cols[0].numel()
+    views = [(f"{m} rows{' offset 1' if off else ''}", at[off], m)
+             for m in (1, 3, 1_000_003) for off in (0, 1)]
+    views.append(("all rows offset 1", 1, n - 1))
+    for label, start, m in views:
+        v = [c[start:start + m] for c in cols]
+        if fa.q6_layout([c.data_ptr() for c in v], m)[0] != (start % 4 == 0):
+            raise AssertionError(f"filter_agg Q6 {label}: wrong path")
+        _close_q6(ops.filter_agg(*v, **b), fa.filter_agg_plain(*v, **b),
+                  f"filter_agg Q6 {label}")
+    log(f"kernel filter_agg Q6: a second call gave the same bits; "
+        f"{', '.join(lbl for lbl, _, _ in views)} = plain")
 
 
 def standalone_kernel_phase(torch, ext, dev, state, flush):
@@ -1797,6 +1891,15 @@ def standalone_kernel_phase(torch, ext, dev, state, flush):
         f"{int(m.sum())})")
     if cnt != int(m.sum()) or not abs(rev - want_rev) <= 1e-4 * want_rev:
         raise AssertionError("filter_agg disagrees with Q6")
+    _q6_edges(torch, dev, li, case, got, m)
+    _one_launch(torch, flush, "filter_agg Q6", case["call"], "q6_kernel")
+    # a yardstick of the card's read rate: one float32 torch.sum over as
+    # many bytes as Q6's four columns hold (the flush buffer's first 16 B
+    # a row, zeros)
+    zeros = flush[:4 * case["info"]["rows"]].view(torch.float32)
+    ms = _time_ms(torch, zeros.sum, flush)
+    log(f"read yardstick: float32 torch.sum over {zeros.numel() * 4} B, "
+        f"{ms * 1e3:.1f} us ({zeros.numel() * 4 / ms / 1e9:.3f} TB/s)")
     # Q1's group counts (the ones column) against numpy; Q1's filter as
     # gid -1, and gid = K, reach no group
     q1_gid = li["l_returnflag"] * 2 + li["l_linestatus"]

@@ -14,7 +14,9 @@ from it how many CTAs fit on an SM, which fixes the grid. The scan
 kernels (``filter_agg``, ``groupby_onehot``, ``segmented_minmax``) have
 no tiling here: each program compiles into its own kernel, whose grid
 follows its occupancy (``kernels.specialise``); the dispatch layer only
-asks :func:`group_tile_fits` whether a grouped tile fits a block.
+asks :func:`group_tile_fits` whether a grouped tile fits a block. The
+Bloom probe has none either: its kernel takes a chunk of rows a warp and
+sizes its grid from its own occupancy (``csrc/bloom.cu``).
 
 The reference also kept the join's sorted build side and the Bloom
 filter's words resident in VMEM and capped their size by it. Neither
@@ -62,7 +64,6 @@ _ACC_BYTES = 8          # f64 accumulators
 _COL_BYTES = 8          # upper bound of one column lane (i64/f64)
 _MASK_BYTES = 1         # bool validity mask
 _SMEM_RESERVED = 1024   # per-CTA shared memory the runtime keeps
-_KEY_BYTES = 8          # int64 join keys
 JOIN_MAX_BUILD_ROWS = 1 << 31   # the join kernel's uint32 build positions
 SORT_MAX_ROWS = 1 << 30         # int32 positions and segment counts
 SORT_MAX_LANES = 16             # sortnet.cuh kMaxLanes: invalid flag + keys
@@ -177,17 +178,6 @@ def join_probe_tiling(*, n_cols: int, n_payload: int, n_aggs: int,
     bpr = float((n_cols + 1) * _COL_BYTES + _MASK_BYTES
                 + n_payload * _COL_BYTES)
     return _finish("join_probe_agg", smem, flops, bpr)
-
-
-def bloom_probe_tiling() -> KernelTiling:
-    """In-kernel semi-join Bloom probe: one thread per row, two fmix32
-    mixes and up to k = 6 word reads from the filter in global memory
-    (at most 512 KiB, ``kernels.bloom.BLOOM_MAX_BITS``: L2-resident).
-    It reads the key and the predicate's mask and writes one byte per
-    row, whatever the scan's width or the filter's size."""
-    flops = 2 * 5.0 + 6 * 6.0
-    bpr = float(_KEY_BYTES + _MASK_BYTES + 1)
-    return _finish("bloom_filter", 0, flops, bpr)
 
 
 def sort_tiling(kernel: str, *, n_keys: int) -> KernelTiling:

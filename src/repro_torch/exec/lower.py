@@ -59,7 +59,9 @@ in EXPLAIN via :func:`kernel_info`. The scan arms (``filter_agg``,
 ``groupby_onehot``, ``segmented_minmax``) carry no tiling: their
 kernels are compiled per program and size their grid from the compiled
 kernel's occupancy (``kernels.specialise``); the matcher only checks
-that a grouped tile fits one block's shared memory.
+that a grouped tile fits one block's shared memory. Nor does the
+``bloom_filter`` arm: its kernel sizes its grid from its own occupancy
+(``csrc/bloom.cu``).
 """
 
 from __future__ import annotations
@@ -123,7 +125,7 @@ class Match:
     group_cols: list[str]
     sizes: list[int]
     aggs: list                   # [name, fn, arg expr dict | None]
-    tiling: roofline.KernelTiling | None    # None for the scan arms
+    tiling: roofline.KernelTiling | None    # None: scan and Bloom arms
     # join_probe_agg only:
     build_leaf: dict | None = None
     probe_preds: list = dataclasses.field(default_factory=list)
@@ -236,9 +238,9 @@ def _match_semijoin(op: dict):
     if child["t"] == "scan_table" and not needed <= set(child["columns"]):
         missing = sorted(needed - set(child["columns"]))
         return None, f"columns {missing} absent from scan"
-    return Match("bloom_filter", child, preds, [], [], [],
-                 roofline.bloom_probe_tiling(), probe_key=key,
-                 bloom_bits=int(op["bits"]), bloom_k=int(op["k"])), None
+    return Match("bloom_filter", child, preds, [], [], [], None,
+                 probe_key=key, bloom_bits=int(op["bits"]),
+                 bloom_k=int(op["k"])), None
 
 
 def bloom_probe_chain(op: dict) -> bool:
@@ -402,7 +404,7 @@ def kernel_info(op: dict) -> dict:
     (for ``final`` ops, possibly on the child under the host sort) or
     None; ``miss`` is the miss reason for the op that executes; ``tiling``
     the roofline tiling estimates of the matched kernel (None for the
-    scan arms, whose compiled kernels size their own grid).
+    scan and Bloom arms, whose kernels size their own grid).
     """
     m, miss = match_fragment_ex(op)
     if m is None and op.get("t") == "final":

@@ -141,6 +141,7 @@ def bloom_probe_np(keys_u32: np.ndarray, words: np.ndarray, n_bits: int,
 NAME = "bloom_filter"
 _MASK32 = 0xFFFFFFFF
 _KEY_TYPES = {torch.int64: 2, torch.int32: 3}   # program.DTYPE_CODES
+CHUNK_ROWS = 256        # csrc/bloom.cu kChunk: rows a warp takes a step
 
 
 def words_tensor(words: np.ndarray, device) -> torch.Tensor:
@@ -197,10 +198,32 @@ def fused_bloom_filter_plain(keys: torch.Tensor, mask: torch.Tensor, *,
     return bloom_probe_plain(keys, words, bits, k) & mask
 
 
+def vector_layout(key_ptr: int, key_bytes: int, mask_ptr: int,
+                  out_ptr: int, n: int) -> tuple[bool, int, int]:
+    """How ``csrc/bloom.cu`` covers ``n`` rows at these addresses:
+    ``(vector, chunks, tail)``. The vector path loads the keys as 16-byte
+    vectors (two int64 or four int32 keys, ``key_bytes`` 8 or 4) and the
+    mask bytes and verdicts of a vector's rows as one 2- or 4-byte unit,
+    so it needs the key 16-byte and the mask and verdicts unit-aligned at
+    row 0; it then takes the ``n // CHUNK_ROWS`` whole chunks of
+    :data:`CHUNK_ROWS` rows (one a warp a step) and the scalar loop the
+    ``tail`` rows past them. Otherwise ``chunks`` is 0 and the scalar
+    loop takes every row."""
+    unit = 16 // key_bytes
+    vector = key_ptr % 16 == 0 and mask_ptr % unit == 0 \
+        and out_ptr % unit == 0
+    chunks = n // CHUNK_ROWS if vector else 0
+    return vector, chunks, n - chunks * CHUNK_ROWS
+
+
 def fused_bloom_filter_cuda(keys: torch.Tensor, mask: torch.Tensor, *,
                             words: torch.Tensor, bits: int,
                             k: int = BLOOM_K, tiling) -> torch.Tensor:
-    """``mask`` ∧ membership of every row's key, by ``csrc/bloom.cu``."""
+    """``mask`` ∧ membership of every row's key, by ``csrc/bloom.cu``.
+    ``tiling`` is unused (the dispatch layer passes None): the kernel
+    takes a chunk of rows a warp (:func:`vector_layout`) and sizes its
+    grid from its occupancy."""
+    del tiling
     lib = ext.library("bloom")
     ext.check_mask(mask)
     _check_filter(words, bits)
@@ -217,11 +240,12 @@ def fused_bloom_filter_cuda(keys: torch.Tensor, mask: torch.Tensor, *,
     keys, words = keys.contiguous(), words.contiguous()
     n = int(mask.shape[0])
     out = torch.empty((n,), dtype=torch.bool, device=dev)
-    ctas = ext.grid_ctas(tiling, n, dev)
+    _, chunks, _ = vector_layout(keys.data_ptr(), keys.element_size(),
+                                 mask.data_ptr(), out.data_ptr(), n)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.bloom_launch(keys.data_ptr(), _KEY_TYPES[keys.dtype],
-                          mask.data_ptr(), n, words.data_ptr(), bits, k,
-                          out.data_ptr(), ctas, tiling.block_rows, stream)
+                          mask.data_ptr(), n, chunks, words.data_ptr(), bits,
+                          k, out.data_ptr(), stream)
     ext.check(lib, rc, NAME)
     ext.count_launch(NAME)
     return out

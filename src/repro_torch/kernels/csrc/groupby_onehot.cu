@@ -212,25 +212,6 @@ RegsKernel regs_kernel(int a, bool half) {
   }
 }
 
-// CTAs: as many as fit the card at once, at most ``max_ctas`` and one a
-// block of threads' rows.
-template <class F>
-int grid_ctas(F kernel, int threads, size_t smem, int64_t n, int max_ctas,
-              cudaError_t* err) {
-  int dev = 0, sms = 0, per_sm = 0;
-  *err = cudaGetDevice(&dev);
-  if (*err == cudaSuccess)
-    *err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (*err == cudaSuccess)
-    *err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                         threads, smem);
-  int64_t ctas = (int64_t)sms * (per_sm < 1 ? 1 : per_sm);
-  const int64_t blocks = (n + threads - 1) / threads;
-  if (ctas > blocks) ctas = blocks;
-  if (ctas > max_ctas) ctas = max_ctas;
-  return ctas < 1 ? 1 : (int)ctas;
-}
-
 }  // namespace onehot
 
 // partials: max_ctas (K, A) float32 tiles; warps: the per-warp path's

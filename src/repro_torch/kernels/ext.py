@@ -79,22 +79,23 @@ _P, _I, _L, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, \
 # C signature of each library's launch function: columns, mask and rows,
 # program, [K,] partials and output, grid, stream (the join adds the
 # gathered-column mask, the probe key, the sorted build keys and the
-# probe-predicate slot; the Bloom probe takes the key, mask, words, bits,
-# k and its output; the sort kernels take the mask and rows, key
-# columns, their output lanes and positions, the radix block rows, the
-# radix scratch and its bytes, then the sort-aggregate's values, scan
-# scratch and outputs, or the top-k's columns, limit and mask; the
-# fixed-layout and model kernels take their tensors, shapes and scalars)
+# probe-predicate slot; the Bloom probe takes the key, mask, rows and
+# vector chunks, words, bits, k and its output; the sort kernels take the
+# mask and rows, key columns, their output lanes and positions, the radix
+# block rows, the radix scratch and its bytes, then the sort-aggregate's
+# values, scan scratch and outputs, or the top-k's columns, limit and
+# mask; the fixed-layout and model kernels take their tensors, shapes and
+# scalars, Q6 also its vector groups and its stream's ticket)
 _ARGTYPES = {
     "join_probe": [_P, _P, _I, _U, _P, _L, _P, _I, _P, _L, _P, _P, _P, _P,
                    _I, _I, _I, _P, _P, _I, _I, _P],
-    "bloom": [_P, _I, _P, _L, _P, _L, _I, _P, _I, _I, _P],
+    "bloom": [_P, _I, _P, _L, _L, _P, _L, _I, _P, _P],
     "sort_agg": [_P, _L, _P, _I, _P, _P, _I, _P, _P, _I, _P, _L, _P, _P,
                  _P, _P, _P, _P],
     "topk": [_P, _L, _P, _P, _P, _I, _P, _P, _I, _P, _L, _P, _P, _P, _I,
              _L, _P, _P],
-    "filter_agg_q6": [_P, _P, _P, _P, _L, _I, _I, _F, _F, _F, _P, _P, _I,
-                      _P],
+    "filter_agg_q6": [_P, _P, _P, _P, _L, _L, _I, _I, _F, _F, _F, _P, _P,
+                      _P, _I, _P],
     "groupby_onehot": [_P, _P, _L, _I, _I, _P, _P, _I, _I, _I, _P],
     "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
                         _P],

@@ -21,6 +21,8 @@ float32 ``[revenue, count]`` (``csrc/filter_agg_q6.cu``).
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from repro_torch.kernels import ext, specialise
@@ -30,8 +32,11 @@ from repro_torch.kernels.program import Program, eval_slot, for_columns
 NAME = "filter_agg"
 NAME_Q6 = "filter_agg_q6"
 BLOCK_ROWS = 2048        # the reference's tile; the CUDA kernel picks its own
-THREADS = 256
-CTAS_PER_SM = 4
+THREADS = 256            # csrc/filter_agg_q6.cu kThreads
+# the Q6 kernel's partials: room for as many CTAs as an SM's 2048 threads
+# hold (the kernel launches what its occupancy fits, at most this)
+MAX_CTAS_PER_SM = 2048 // THREADS
+GROUP_ROWS = 4           # csrc/filter_agg_q6.cu kGroup: rows a thread a step
 
 
 def _surviving(columns: dict, mask, prog: Program):
@@ -99,13 +104,48 @@ def filter_agg_plain(shipdate, discount, quantity, extendedprice, *,
     return torch.stack([val.sum(), m.sum(dtype=torch.float32)])
 
 
+def q6_layout(ptrs, n: int) -> tuple[bool, int, int]:
+    """How ``csrc/filter_agg_q6.cu`` covers ``n`` rows of the columns at
+    addresses ``ptrs``: ``(vector, groups, tail)``. The vector path loads
+    a group of :data:`GROUP_ROWS` rows of each column as one 16-byte
+    vector, so it needs every column 16-byte aligned at row 0; it then
+    takes the ``n // GROUP_ROWS`` whole groups and the scalar loop the
+    ``tail`` rows past them. Otherwise ``groups`` is 0 and the scalar
+    loop takes every row."""
+    vector = all(p % 16 == 0 for p in ptrs)
+    groups = n // GROUP_ROWS if vector else 0
+    return vector, groups, n - groups * GROUP_ROWS
+
+
+_tickets: dict = {}
+_tickets_lock = threading.Lock()
+
+
+def _ticket(device, stream: int) -> torch.Tensor:
+    """The Q6 kernel's CTA counter for ``stream`` on ``device``: one int32
+    a stream, zeroed once on that stream, which the kernel leaves at 0
+    again when it ends; so calls on one stream take it in turn and calls
+    on two streams never share one."""
+    key = (device.index, stream)
+    with _tickets_lock:
+        t = _tickets.get(key)
+        if t is None:
+            t = _tickets[key] = torch.zeros(1, dtype=torch.int32,
+                                            device=device)
+    return t
+
+
 def filter_agg_cuda(shipdate, discount, quantity, extendedprice, *,
                     date_lo: int, date_hi: int, disc_lo: float,
                     disc_hi: float, qty_hi: float,
                     block: int = BLOCK_ROWS) -> torch.Tensor:
     """The kernel of :func:`filter_agg_plain`. Takes contiguous 1-D CUDA
     tensors, int32 ship date and float32 others, and raises on anything
-    else; ``block`` is accepted for the reference's signature."""
+    else; ``block`` is accepted for the reference's signature. The
+    kernel takes a group of rows a thread (:func:`q6_layout`) and sizes
+    its grid from its occupancy, and its last CTA folds the partials
+    (:func:`_ticket`), in one launch; the count is exact, the revenue a
+    float32 sum in a fixed order (two calls give the same bits)."""
     del block
     n = int(shipdate.shape[0])
     for name, t, dtype in (("shipdate", shipdate, torch.int32),
@@ -122,14 +162,16 @@ def filter_agg_cuda(shipdate, discount, quantity, extendedprice, *,
         raise ValueError(f"date bounds {lo}, {hi}: want int32")
     lib = ext.library(NAME_Q6)
     dev = shipdate.device
-    ctas = max(1, min(ext.sm_count(dev) * CTAS_PER_SM, -(-n // THREADS)))
-    partials = torch.empty((ctas, 2), dtype=torch.float32, device=dev)
+    cols = (shipdate, discount, quantity, extendedprice)
+    _, groups, _ = q6_layout([c.data_ptr() for c in cols], n)
+    max_ctas = ext.sm_count(dev) * MAX_CTAS_PER_SM
+    partials = torch.empty((max_ctas, 2), dtype=torch.float32, device=dev)
     out = torch.empty((2,), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.filter_agg_q6_launch(
-        shipdate.data_ptr(), discount.data_ptr(), quantity.data_ptr(),
-        extendedprice.data_ptr(), n, lo, hi, float(disc_lo),
-        float(disc_hi), float(qty_hi), partials.data_ptr(), out.data_ptr(),
-        ctas, torch.cuda.current_stream(dev).cuda_stream)
+        *(c.data_ptr() for c in cols), n, groups, lo, hi, float(disc_lo),
+        float(disc_hi), float(qty_hi), partials.data_ptr(),
+        _ticket(dev, stream).data_ptr(), out.data_ptr(), max_ctas, stream)
     ext.check(lib, rc, NAME_Q6)
     ext.count_launch(NAME_Q6)
     return out

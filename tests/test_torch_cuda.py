@@ -382,26 +382,58 @@ def test_join_kernel_probe_predicate_matches_plain(session, capacity,
     np.testing.assert_allclose(g, w, **TOL)
 
 
-@pytest.mark.parametrize("capacity", [1024, 1 << 16])
-@pytest.mark.parametrize("bits", [1 << 10, 1 << 22])
-def test_bloom_kernel_matches_plain(session, capacity, bits):
+@pytest.mark.parametrize("key_dtype", [np.int64, np.int32])
+@pytest.mark.parametrize("capacity", [1, 7, 1000, 1024, 1 << 16])
+@pytest.mark.parametrize("bits", [1 << 10, 1 << 20, 1 << 21, 1 << 22])
+def test_bloom_kernel_matches_plain(session, capacity, bits, key_dtype):
+    """The kernel against the plain version and the host probe, lane for
+    lane: random masks, an all-masked block, a mask whose tail is all
+    padding (whole chunks of the vector path skip their keys), a view at
+    storage offset 1 (the scalar loop), capacities that are not a
+    multiple of the chunk and k = 3 as well as BLOOM_K = 6; one
+    counted launch a call."""
     rng = np.random.default_rng(bits + capacity)
     dev = torch.device("cuda", 0)
     members = rng.integers(0, 1 << 20, 5000)
-    words = bloom.words_tensor(bloom.bloom_build(
-        members.astype(np.uint32), bits), dev)
-    keys = np.concatenate([members[:100], rng.integers(
-        -(1 << 40), 1 << 40, capacity - 100)]).astype(np.int64)
-    keys = torch.from_numpy(keys).to(dev)
-    mask = torch.from_numpy(rng.random(capacity) < 0.9).to(dev)
-    before = ext.launches().get("bloom_filter", 0)
-    got = ops.fused_bloom_filter(keys, mask, words=words, bits=bits, k=6,
-                                 tiling=roofline.bloom_probe_tiling())
-    want = bloom.fused_bloom_filter_plain(keys, mask, words=words,
-                                          bits=bits, k=6)
-    torch.cuda.synchronize()
-    assert ext.launches().get("bloom_filter", 0) == before + 1
-    assert torch.equal(got, want)
+    host_words = bloom.bloom_build(members.astype(np.uint32), bits)
+    words = bloom.words_tensor(host_words, dev)
+    n_members = min(100, capacity)
+    keys_np = np.concatenate([members[:n_members], rng.integers(
+        -(1 << 40), 1 << 40, capacity + 1 - n_members)]).astype(key_dtype)
+    full = torch.from_numpy(keys_np).to(dev)
+    keys = full[:capacity]
+    tail = np.zeros(capacity, bool)
+    tail[:capacity // 3] = True
+    masks = {"random": rng.random(capacity) < 0.9,
+             "all masked": np.zeros(capacity, bool), "padding tail": tail}
+    for label, m in masks.items():
+        mask = torch.from_numpy(m).to(dev)
+        got = _launched("bloom_filter", lambda: ops.fused_bloom_filter(
+            keys, mask, words=words, bits=bits, k=6,
+            tiling=None))
+        want = bloom.fused_bloom_filter_plain(keys, mask, words=words,
+                                              bits=bits, k=6)
+        assert torch.equal(got, want), label
+        host = bloom.bloom_probe_np(keys_np[:capacity].astype(np.uint32),
+                                    host_words, bits) & m
+        np.testing.assert_array_equal(got.cpu().numpy(), host, label)
+    # a view at storage offset 1: key and mask off their vector alignment
+    mfull = torch.from_numpy(rng.random(capacity + 1) < 0.9).to(dev)
+    kv, mv = full[1:], mfull[1:]
+    assert not bloom.vector_layout(kv.data_ptr(), kv.element_size(),
+                                   mv.data_ptr(), 0, capacity)[0]
+    got = _launched("bloom_filter", lambda: ops.fused_bloom_filter(
+        kv, mv, words=words, bits=bits, k=6,
+        tiling=None))
+    assert torch.equal(got, bloom.fused_bloom_filter_plain(
+        kv, mv, words=words, bits=bits, k=6))
+    # k = 3: a second wave of two reads
+    mask = torch.from_numpy(masks["random"]).to(dev)
+    got = _launched("bloom_filter", lambda: ops.fused_bloom_filter(
+        keys, mask, words=words, bits=bits, k=3,
+        tiling=None))
+    assert torch.equal(got, bloom.fused_bloom_filter_plain(
+        keys, mask, words=words, bits=bits, k=3))
 
 
 # the semi-join tests' selective join, grouped by a dictionary-coded
@@ -758,24 +790,63 @@ def _launched(name, fn):
     return out
 
 
-@pytest.mark.parametrize("n", [1000, 1 << 20])
+@pytest.mark.parametrize("n", [1, 3, 5, 1000, 1 << 20])
 def test_filter_agg_q6_kernel_matches_plain(card, n):
+    """The kernel against the plain version: aligned columns (whole
+    groups of four and a ragged tail), views at storage offset 1 (the
+    scalar loop), and a second call's bits; one counted launch a call.
+    The first row passes, so every count is at least 1."""
     rng = np.random.default_rng(n)
-    ship = torch.from_numpy(rng.integers(8000, 10000, n).astype(
-        np.int32)).to(card)
-    disc = torch.from_numpy((rng.integers(0, 11, n) / 100).astype(
-        np.float32)).to(card)
-    qty = torch.from_numpy(rng.integers(1, 51, n).astype(np.float32)).to(
-        card)
-    price = torch.from_numpy(rng.random(n).astype(np.float32) * 1e4).to(card)
+    m = n + 1
+    ship = rng.integers(8000, 10000, m).astype(np.int32)
+    disc = (rng.integers(0, 11, m) / 100).astype(np.float32)
+    qty = rng.integers(1, 51, m).astype(np.float32)
+    price = rng.random(m).astype(np.float32) * 1e4
+    ship[:2], disc[:2], qty[:2] = 9000, 0.06, 10
+    full = [torch.from_numpy(a).to(card) for a in (ship, disc, qty, price)]
     bounds = dict(date_lo=8500, date_hi=9500, disc_lo=0.05, disc_hi=0.07,
                   qty_hi=24.0)
-    got = _launched("filter_agg_q6", lambda: ops.filter_agg(
-        ship, disc, qty, price, **bounds))
-    want = fa.filter_agg_plain(ship, disc, qty, price, **bounds)
-    assert got.dtype == torch.float32 and got.shape == (2,)
-    assert float(got[1]) == float(want[1]) > 0
-    np.testing.assert_allclose(float(got[0]), float(want[0]), rtol=1e-4)
+    for label, cols in (("aligned", [c[:n] for c in full]),
+                        ("offset 1", [c[1:] for c in full])):
+        assert fa.q6_layout([c.data_ptr() for c in cols], n)[0] \
+            == (label == "aligned")
+        got = _launched("filter_agg_q6", lambda: ops.filter_agg(
+            *cols, **bounds))
+        want = fa.filter_agg_plain(*cols, **bounds)
+        assert got.dtype == torch.float32 and got.shape == (2,)
+        assert float(got[1]) == float(want[1]) > 0, label
+        np.testing.assert_allclose(float(got[0]), float(want[0]),
+                                   rtol=1e-4, err_msg=label)
+        again = _launched("filter_agg_q6", lambda: ops.filter_agg(
+            *cols, **bounds))
+        assert torch.equal(again.view(torch.int32), got.view(torch.int32))
+
+
+def test_filter_agg_q6_streams_keep_their_own_ticket(card):
+    """Calls on two streams at once, each folded by its last CTA behind
+    its own stream's counter: each equals the plain version."""
+    rng = np.random.default_rng(7)
+    bounds = dict(date_lo=8500, date_hi=9500, disc_lo=0.05, disc_hi=0.07,
+                  qty_hi=24.0)
+    sets = []
+    for n in (1 << 20, 300_001):
+        sets.append([torch.from_numpy(a).to(card) for a in (
+            rng.integers(8000, 10000, n).astype(np.int32),
+            (rng.integers(0, 11, n) / 100).astype(np.float32),
+            rng.integers(1, 51, n).astype(np.float32),
+            rng.random(n).astype(np.float32) * 1e4)])
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(card) for _ in sets]
+    outs = []
+    for _ in range(3):
+        for st, cols in zip(streams, sets):
+            with torch.cuda.stream(st):
+                outs.append((ops.filter_agg(*cols, **bounds), cols))
+    torch.cuda.synchronize()
+    for got, cols in outs:
+        want = fa.filter_agg_plain(*cols, **bounds)
+        assert float(got[1]) == float(want[1]) > 0
+        np.testing.assert_allclose(float(got[0]), float(want[0]), rtol=1e-4)
 
 
 @pytest.mark.parametrize("n,K,A", [(5000, 6, 5), (1 << 20, 120, 5),

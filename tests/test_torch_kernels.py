@@ -360,13 +360,25 @@ def test_scan_arms_carry_no_tiling(tpch_store, query):
     assert port_lower.dispatch_signature(op)[:2] == (KERNEL[query], None)
 
 
+def test_bloom_arm_carries_no_tiling():
+    """The Bloom probe's kernel takes a chunk of rows a warp and sizes
+    its grid from its own occupancy, so dispatch gives the
+    ``bloom_filter`` arm no roofline tiling either: none in EXPLAIN's
+    kernel info, none in the program cache key."""
+    op = {"t": "semijoin_probe", "key": "l_orderkey", "bits": 1 << 21,
+          "k": 6, "child": {"t": "scan_table", "table": "lineitem",
+                            "columns": ["l_orderkey", "l_quantity"]}}
+    assert port_lower.kernel_info(op) == {"kernel": "bloom_filter",
+                                          "miss": None, "tiling": None}
+    assert port_lower.dispatch_signature(op)[:2] == ("bloom_filter", None)
+
+
 @pytest.mark.parametrize("make", [
     lambda: roofline.join_probe_tiling(n_cols=5, n_payload=1, n_aggs=2,
                                        n_groups=7),
     lambda: roofline.join_probe_tiling(n_cols=4, n_payload=2, n_aggs=2,
                                        n_groups=0),
-    roofline.bloom_probe_tiling,
-], ids=["join_grouped", "join", "bloom"])
+], ids=["join_grouped", "join"])
 def test_every_tiling_covers_whole_ctas_on_every_sm(make):
     """``resident_rows`` has one meaning for every kernel: the rows the
     whole grid covers per grid-stride step, a whole number of CTAs on
