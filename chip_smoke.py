@@ -44,8 +44,19 @@ holds each against its plain version and times it beside its bound and,
 where one PyTorch call computes the same function, that call; the SSD
 scan, Q6 and the grouped sums also with each kernel's device time, the
 SSD scan with its executed against its needed operations.
-Before the kernel phases, a profile of the sort-aggregate's and the bf16
-attention's main calls, kernel by kernel (torch.profiler). Exits nonzero
+Right after the query phase, the service tier's path
+(``service_phase``, launch counts reset around it): two tenants' fleet
+of the eight statements above through a ``QueryService`` with the
+result cache off, and the selective join through a second service over
+the repartition planner, each request SUCCEEDED with the oracle's rows
+and every kernel launched for its fragments; a two-node DAG whose
+second node is served from the first's results; two orphaned requests
+(ADMITTED, RUNNING) recovered by a new instance with one clean run's
+invocations; and ``python -m repro_torch.launch.sql`` on the card as a
+subprocess. The top-k is also timed beside library sorts of its packed
+key. Before the kernel phases, a profile of the sort-aggregate's and the
+bf16 attention's main calls, kernel by kernel (torch.profiler). Exits
+nonzero
 on any failure. The last two lines are JSON: the kernel table, then
 ``{"ok": true, "device": ...}``. """
 
@@ -170,6 +181,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     state, launches = query_phase(torch, ext)
     try:
+        service_phase(torch, ext, state)
         # first: after the many profiler sessions of the device-time
         # columns below, the profiler once recorded no launch of the bf16
         # attention kernel (the cause is not known); a profile that
@@ -382,7 +394,7 @@ def query_phase(torch, ext, *, sf=1, n_parts=None, device=None,
                ("sortagg", SORTAGG_SQL, session, {"sort_agg": None}),
                ("q3", QUERIES["q3"], session, {"topk": None})]
     shapes, specs, frags, captured, current = {}, {}, {}, {}, [None]
-    fetched = {}
+    fetched, truth = {}, {}
     restore = _capture(ops, captured, current)
     on_card = session.device.type == "cuda"
     peaks = {}                               # query -> peak MiB allocated
@@ -438,7 +450,8 @@ def query_phase(torch, ext, *, sf=1, n_parts=None, device=None,
                 on.append(f"{len(ran)} on {kernel}, compute_s "
                           f"{sum(r['compute_s'] for r in ran):.6f} s")
             lqp, _ = Binder(catalog).bind(parse(sql))
-            _assert_rows(rows, oracle.run(optimize(lqp), tables), name)
+            truth[name] = oracle.run(optimize(lqp), tables)
+            _assert_rows(rows, truth[name], name)
             mem = ""
             if on_card:
                 peaks[name] = torch.cuda.max_memory_allocated() / 2**20
@@ -492,8 +505,282 @@ def query_phase(torch, ext, *, sf=1, n_parts=None, device=None,
             "bloom_spec": specs["semijoin"], "catalog": catalog,
             "sort_input": captured[("sortagg", "sort_agg")],
             "topk_input": captured[("q3", "topk")], "sf": sf,
-            "q6_rows": fetched["q6"],
+            "q6_rows": fetched["q6"], "truth": truth, "n_parts": n_parts,
+            "config": config,
             "session": session, "sessions": (session, repart)}, launches
+
+
+# -- service phase: the query service tier on the card ------------------------
+
+# the fleet's statements: query_phase's name → the kernels its pipelines
+# run (the SQL is query_phase's)
+SERVICE_QUERIES = {"q6": ("filter_agg",), "q1": ("groupby_onehot",),
+                   "minmax": ("segmented_minmax",), "q12": ("join_probe_agg",),
+                   "q14": ("join_probe_agg",), "q19": ("join_probe_agg",),
+                   "q3": ("topk",), "sortagg": ("sort_agg",)}
+SERVICE_TENANTS = (("gold", dict(weight=3.0, deadline_s=30.0)),
+                   ("bronze", dict(weight=1.0, budget_cents=100.0)))
+# the dead owner's lease in the recovery drive: long enough that no
+# compile or wall of this run outlasts a live owner's renewals
+ORPHAN_LEASE_S = 3.0
+
+
+def _q6_year(year):
+    from repro_torch.sql.queries import QUERIES
+    return QUERIES["q6"].replace("1994-01-01", f"{year}-01-01")
+
+
+def _submits(session):
+    """Wrap ``session.submit`` so that each call's handle is kept beside
+    its tenant and SQL (the service keeps a handle only while it runs)."""
+    seen, lock, inner = [], threading.Lock(), session.submit
+
+    def submit(sql, *a, **kw):
+        handle = inner(sql, *a, **kw)
+        with lock:
+            seen.append((kw.get("tenant"), sql, handle))
+        return handle
+    session.submit = submit
+    return seen
+
+
+def _served(ctx, handle, truth, store):
+    """A SUCCEEDED request's rows against the oracle; its log line."""
+    res = handle.result(timeout=900)
+    e = handle.entry()
+    if e.status.value != "SUCCEEDED":
+        raise AssertionError(f"{ctx}: {e.status.value} {e.error}")
+    _assert_rows(res.fetch(store), truth, ctx)
+    log(f"service {ctx}: SUCCEEDED, attempt {e.attempt}, wall "
+        f"{e.finished_at - e.submitted_at:.3f} s ("
+        f"{e.finished_at - e.started_at:.3f} s running), sim latency "
+        f"{res.sim_latency_s:.4f} s, {res.cost_cents:.6f} cents, cache hits "
+        f"{res.cache_hits}, rows = oracle")
+    return res, e
+
+
+def service_phase(torch, ext, state, *, device=None, cli_device=None):
+    """The service tier's path (``repro_torch.service``, then the CLI) on
+    query_phase's SF 1 store, with the launch counts set to 0 just before
+    it and read just after:
+
+    - a fleet: two tenants (weight 3 with a deadline, weight 1 with a
+      budget) each submit query_phase's eight statements to a
+      ``QueryService`` over a session with the result cache off (every
+      request runs its fragments), four queries at a time, and a second
+      service over a session with query_phase's repartition planner
+      serves the selective join (the Bloom kernel); every request ends
+      SUCCEEDED with the oracle's rows, each pipeline that should run a
+      kernel ran it on every fragment, and each kernel's launches cover
+      its fragments;
+    - a DAG over the cached main session: two copies of Q6 at another
+      year, node 1 after node 0, node 1 served from node 0's results;
+    - recovery: orphans left ADMITTED and RUNNING by a dead owner, whose
+      lease lapses, recovered by a new instance with one clean run's
+      invocations;
+    - the CLI (``python -m repro_torch.launch.sql``) as a subprocess, on
+      the card unless ``cli_device`` says otherwise, started first so it
+      overlaps the rest.
+
+    The two fleet sessions run barrier mode: both tenants run the same
+    statements at once with no result cache, and a pipelined pipeline's
+    partial stream is keyed by its semantic hash, which two live runs of
+    one pipeline would share."""
+    import dataclasses
+    import os
+    from repro_torch.api import connect
+    from repro_torch.core import CoordinatorConfig
+    from repro_torch.service import (QueryService, RequestLedger,
+                                     RequestStatus, ServiceHandle,
+                                     TenantConfig)
+    from repro_torch.sql import oracle
+    from repro_torch.sql.logical import Binder
+    from repro_torch.sql.parser import parse
+    from repro_torch.sql.physical import PlannerConfig
+    from repro_torch.sql.queries import QUERIES
+    from repro_torch.sql.rules import optimize
+
+    t_phase = time.perf_counter()
+    main, store = state["session"], state["session"].store
+    sf, n_parts = state["sf"], state["n_parts"]
+    base = state["config"] or CoordinatorConfig()
+    sqls = dict(QUERIES, minmax=MINMAX_SQL, sortagg=SORTAGG_SQL)
+    truth = state["truth"]
+
+    def oracle_rows(sql):
+        lqp, _ = Binder(state["catalog"]).bind(parse(sql))
+        return oracle.run(optimize(lqp), state["tables"])
+
+    root = Path(__file__).resolve().parent
+    cli = [sys.executable, "-m", "repro_torch.launch.sql", "--sf", "0.01",
+           "--query", "q6,q12", "--tenant", "smoke", "--deadline", "10"]
+    if cli_device is not None:
+        cli += ["--device", cli_device]
+    proc = subprocess.Popen(cli, cwd=root, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            env=dict(os.environ, PYTHONPATH=str(root / "src")))
+    sessions, services = [], []
+
+    def session(config):
+        s = connect(store=store, quota=16, device=device, config=config,
+                    max_concurrent_queries=4)
+        sessions.append(s)
+        s.ensure_tpch(sf=sf, n_parts=n_parts)
+        return s
+
+    def service(s, namespace, **kw):
+        svc = QueryService(s, ledger=RequestLedger(
+            store, namespace=namespace, lease_ttl_s=30.0), **kw)
+        services.append(svc)
+        return svc
+
+    ext.reset_launches()                     # the service path starts here
+    try:
+        # -- the fleet
+        fleet = session(dataclasses.replace(base, use_result_cache=False,
+                                            pipelined=False))
+        repart = session(CoordinatorConfig(
+            planner=PlannerConfig(broadcast_threshold_bytes=1,
+                                  exchange_partitions=4),
+            use_result_cache=False, pipelined=False, adaptive=False))
+        fleet_runs, repart_runs = _submits(fleet), _submits(repart)
+        svc = service(fleet, "ledger-fleet", tenants=tuple(
+            TenantConfig(name, **kw) for name, kw in SERVICE_TENANTS))
+        svc_repart = service(repart, "ledger-repart")
+        handles = {(t, q): svc.submit(sqls[q], tenant=t)
+                   for t, _ in SERVICE_TENANTS for q in SERVICE_QUERIES}
+        handles[("repart", "semijoin")] = svc_repart.submit(SELECTIVE_JOIN)
+        for (tenant, q), h in handles.items():
+            _served(f"{tenant} {q}", h, truth[q], store)
+        for s in (svc, svc_repart):
+            s.close()
+        fleet_launches = ext.launches()
+        want = dict(SERVICE_QUERIES,
+                    semijoin=("bloom_filter", "join_probe_agg"))
+        by_sql = {sqls[q]: q for q in SERVICE_QUERIES}
+        by_sql[SELECTIVE_JOIN] = "semijoin"
+        fragments = {}
+        runs = [(t or "repart", by_sql[sql], h)
+                for t, sql, h in fleet_runs + repart_runs]
+        if len(runs) != len(handles):
+            raise AssertionError(f"{len(runs)} session runs for "
+                                 f"{len(handles)} requests")
+        def kernel_of(p):
+            # a probe scan whose semi-join filter was applied runs the
+            # Bloom kernel on each fragment (its pipeline has no arm)
+            if (p.semijoin or {}).get("applied") and not p.kernel:
+                return "bloom_filter"
+            return p.kernel
+        for tenant, q, h in runs:
+            pipes = h.stats().pipelines
+            for kernel in want[q]:
+                ran = [p for p in pipes if kernel_of(p) == kernel]
+                if not ran or any(p.kernel_fragments != p.n_fragments
+                                  or p.n_fragments < 1 for p in ran):
+                    raise AssertionError(
+                        f"service {tenant} {q}: {kernel} ran on "
+                        f"{[(p.kernel_fragments, p.n_fragments) for p in ran]}"
+                        f" fragments of its pipelines")
+            for p in pipes:
+                if kernel_of(p):
+                    fragments[kernel_of(p)] = fragments.get(
+                        kernel_of(p), 0) + p.kernel_fragments
+        for kernel in KERNELS:
+            n = fleet_launches.get(LAUNCH_NAME[kernel], 0)
+            if n < max(fragments.get(kernel, 0), 1):
+                raise AssertionError(f"service fleet: {kernel} launched {n} "
+                                     f"times for {fragments.get(kernel, 0)} "
+                                     f"kernel fragments")
+        log(f"service fleet: {len(handles)} requests SUCCEEDED = oracle; "
+            f"kernel fragments {fragments}; launches {fleet_launches}; "
+            f"tenants " + json.dumps({k: {f: v for f, v in t.items()
+                                          if f in ("window_spent_cents",
+                                                   "admitted_slots",
+                                                   "runtime_ema_s",
+                                                   "throttled_admissions",
+                                                   "degraded_dispatches")}
+                                      for k, t in svc.stats()[
+                                          "tenants"].items()}))
+
+        # -- a DAG over the cached main session
+        dag_sql = _q6_year(1995)
+        before = ext.launches().get(LAUNCH_NAME["filter_agg"], 0)
+        with service(main, "ledger-dag") as svc_dag:
+            n0, n1 = svc_dag.submit_dag([dag_sql, dag_sql], {1: [0]})
+            want_rows = oracle_rows(dag_sql)
+            _, e0 = _served("dag node 0", n0, want_rows, store)
+            r1, e1 = _served("dag node 1", n1, want_rows, store)
+        scans = ext.launches().get(LAUNCH_NAME["filter_agg"], 0) - before
+        shared = e1.result["cache_hits"] + e1.result["deduped"]
+        if scans < 1 or e1.started_at < e0.finished_at or shared < 1:
+            raise AssertionError(f"dag: {scans} scan launches, node 1 "
+                                 f"started {e1.started_at - e0.finished_at} "
+                                 f"s after node 0 ended, {shared} shared")
+        log(f"service dag: node 0 launched the scan kernel {scans} times; "
+            f"node 1 started {e1.started_at - e0.finished_at:.3f} s after "
+            f"node 0 finished, cache hits {r1.cache_hits} + deduped "
+            f"{e1.result['deduped']}")
+
+        # -- recovery, exactly once: two orphans of one statement
+        rec_sql = _q6_year(1996)
+        rec_cfg = dataclasses.replace(base, calibrate_selectivity=False,
+                                      pipelined=False)
+        dead = RequestLedger(store, namespace="ledger-recovery",
+                             lease_ttl_s=ORPHAN_LEASE_S)
+        for rid, die_at in (("orphan-admitted", RequestStatus.ADMITTED),
+                            ("orphan-running", RequestStatus.RUNNING)):
+            dead.submit(rec_sql, request_id=rid)
+            dead.claim(rid, "svc-dead")
+            if die_at is RequestStatus.RUNNING:
+                dead.transition(rid, die_at, if_owner="svc-dead")
+            if dead.get(rid).status is not die_at:
+                raise AssertionError(f"{rid}: {dead.get(rid).status}")
+        lapse = max(e.lease_expires for e in dead.entries()) - time.time()
+        time.sleep(max(lapse, 0.0) + 0.05)    # the owner never renews
+        rec = session(rec_cfg)
+        svc_rec = service(rec, "ledger-recovery")
+        rec_rows = oracle_rows(rec_sql)
+        for rid in ("orphan-admitted", "orphan-running"):
+            _, e = _served(f"recovered {rid}", ServiceHandle(rid, svc_rec),
+                           rec_rows, store)
+            if e.attempt != 1:
+                raise AssertionError(f"{rid}: attempt {e.attempt}")
+        svc_rec.close()
+        # one clean run of the same statement, on a platform of its own
+        clean = session(dataclasses.replace(rec_cfg, use_result_cache=False))
+        _assert_rows(clean.sql(rec_sql, timeout=900).fetch(store), rec_rows,
+                     "clean run")
+        got, solo = rec.platform.invocations, clean.platform.invocations
+        if got != solo or svc_rec.recovered_requests != 2:
+            raise AssertionError(f"recovery: {got} invocations for two "
+                                 f"orphans, a clean run {solo}; recovered "
+                                 f"{svc_rec.recovered_requests}")
+        log(f"service recovery: 2 orphans (ADMITTED, RUNNING) re-queued and "
+            f"run with {got} invocations = one clean run's {solo}")
+
+        # -- the CLI
+        out, err = proc.communicate(timeout=300)
+        lines = out.splitlines()
+        for ln in lines:
+            log(f"  cli: {ln}")
+        want_dev = (f"[sql] device {cli_device}" if cli_device else
+                    f"[sql] device cuda:0 ({torch.cuda.get_device_name(0)})")
+        ok = sum("SUCCEEDED (tenant=smoke" in ln for ln in lines)
+        if proc.returncode != 0 or ok != 2 or want_dev not in lines:
+            raise AssertionError(f"cli: exit {proc.returncode}, {ok} of 2 "
+                                 f"SUCCEEDED, {want_dev!r} printed: "
+                                 f"{want_dev in lines}\n{err[-3000:]}")
+    finally:
+        for svc_ in services:
+            svc_.kill()
+        for s in sessions:
+            s.close()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    # ... and ends here
+    log(f"service phase launches: {ext.launches()}")
+    log(f"service phase: {time.perf_counter() - t_phase:.1f} s")
 
 
 # -- kernel phase: each kernel against its plain version ----------------------
@@ -1207,6 +1494,41 @@ def _library_sort_ms(torch, flush, keys, mask):
     return _time_ms(torch, lambda: torch.sort(packed, stable=True), flush)
 
 
+def _library_topk(torch, flush, cols, mask, sort_keys, limit, plain):
+    """The top-k's selection from library calls. Row 6's one call, a
+    stable ``torch.sort`` of a packed key, needs the invalid flag and each
+    sort key's ordered bits (``sortnet.encode_key``), each less its
+    minimum, to fit 63 bits; Q3's keys do not (a float64 revenue and a
+    date), so the selection takes a stable sort a lane, last lane first,
+    each lane gathered by the order so far (LSD), then the first
+    ``limit`` rows, held against the plain version's. Returns (ms of the
+    whole LSD, the packed key's bits, library calls)."""
+    from repro_torch.kernels import sortnet
+    lanes = [(~mask).to(torch.int64)] + [
+        sortnet.encode_key(cols[k], d) for k, d in sort_keys]
+    # unsigned order of the ordered bits is signed order with the sign
+    # bit flipped
+    signed = [lane ^ torch.iinfo(torch.int64).min for lane in lanes]
+    bits = sum((int(x.max()) - int(x.min())).bit_length() for x in signed)
+
+    def lsd():
+        idx = torch.arange(mask.numel(), device=mask.device)
+        for x in reversed(signed):
+            idx = idx[torch.sort(x[idx], stable=True).indices]
+        return idx
+    order = lsd()
+    ms = _time_ms(torch, lsd, flush)
+    want_cols, want_mask = plain
+    n = min(limit, int(mask.sum()))
+    for c, v in want_cols.items():
+        torch.testing.assert_close(cols[c][order[:n]], v[:n], rtol=0,
+                                   atol=0, equal_nan=True,
+                                   msg=f"topk library: column {c} differs")
+    if int(want_mask.sum()) != n:
+        raise AssertionError("topk library: row count differs")
+    return ms, bits, 2 * len(lanes) + 1
+
+
 def _radix_passes(torch, mask, keys, descending=None):
     """Live passes of the radix sort on these keys: the 8-bit digits of
     the encoded lanes (invalid flag first) not equal in every row."""
@@ -1397,6 +1719,15 @@ def sort_kernel_phase(torch, dev, state, launches, flush):
                  sort_keys=[[k, bool(d)] for k, d in sk],
                  radix_passes=passes, path=how),
             device=tk_kernels[how])
+        lib_ms, bits, calls = _library_topk(torch, flush, c, m, sk, limit,
+                                            tk_plain(c, m, sk))
+        if bits <= 63:
+            raise AssertionError(f"topk {label}: the packed key fits "
+                                 f"{bits} bits: time its one sort")
+        library[f"topk {label}"] = lib_ms
+        log(f"kernel topk {label}: library {lib_ms} ms: no one call, the "
+            f"packed key needs {bits} bits; a stable torch.sort a lane "
+            f"with gathers (LSD), {calls} calls")
     # edge cases on both sides of the cluster path's cap (2^14: one
     # launch; 2^15 and 2^16: the radix sort)
     tcases = {}
@@ -1442,7 +1773,13 @@ def sort_kernel_phase(torch, dev, state, launches, flush):
             tcases[lab] = None
     _sync(torch)
     log(f"kernel topk: {', '.join(tcases)} = plain")
-    rows.append(_table_row("topk", launches, tk_results, "main"))
+    rows.append(_table_row(
+        "topk", launches, tk_results, "main",
+        library_lsd_ms=library["topk main"],
+        library_call="none: the packed key (inv, encoded sort keys less "
+                     "their minima) needs more than 63 bits; "
+                     "library_lsd_ms: a stable torch.sort a lane (LSD), "
+                     "then the first LIMIT rows"))
     return rows
 
 

@@ -1013,3 +1013,61 @@ def test_model_kernel_wrappers_refuse_what_the_kernels_do_not_take(card):
         ops.ssd_scan(x.double(), dt, dt[0, 0], bc, bc)
     with pytest.raises(ValueError):          # P = 32
         ops.ssd_scan(x[..., :32].contiguous(), dt, dt[0, 0], bc, bc)
+
+
+# -- the service tier on the card
+
+def test_service_on_the_card_equals_the_cpu_port(session):
+    """Two tenants' Q6, Q12 and Q3 through a ``QueryService`` over a card
+    session (result cache off, so every request runs its fragments; the
+    benchmark suites' planner, so Q3's final runs the top-k kernel): each
+    request SUCCEEDED, each kernel launched for both tenants, and the rows
+    equal the port's on the CPU over the same store. Barrier mode, as
+    ``chip_smoke.py``'s fleet: with the cache off, two live runs of one
+    pipeline share its result prefix and partial stream, and in pipelined
+    mode they can size their fleets apart and mix each other's objects
+    (``probes/service_race.py``; a fault of both packages' engine)."""
+    from repro_torch.service import QueryService, TenantConfig
+    s, catalog, _ = session
+    planner = PlannerConfig(bytes_per_worker=500_000,
+                            broadcast_threshold_bytes=250_000,
+                            exchange_partitions=4)
+    card_s = connect(s.store, catalog, quota=16, max_concurrent_queries=4,
+                     config=CoordinatorConfig(planner=planner,
+                                              use_result_cache=False,
+                                              pipelined=False))
+    cpu_s = connect(s.store, catalog, quota=16, device="cpu",
+                    config=CoordinatorConfig(planner=planner,
+                                             use_result_cache=False,
+                                             pipelined=False))
+    kernels = {"q6": "filter_agg", "q12": "join_probe_agg", "q3": "topk"}
+    try:
+        assert card_s.device.type == "cuda"
+        before = ext.launches()
+        with QueryService(card_s, tenants=(
+                TenantConfig("gold", weight=3.0, deadline_s=30.0),
+                TenantConfig("bronze", budget_cents=100.0))) as svc:
+            handles = {(t, q): svc.submit(QUERIES[q], tenant=t)
+                       for t in ("gold", "bronze") for q in kernels}
+            got = {k: h.fetch(timeout=300) for k, h in handles.items()}
+            status = {k: h.entry().status.value for k, h in handles.items()}
+        after = ext.launches()
+        assert set(status.values()) == {"SUCCEEDED"}, status
+        for name in kernels.values():
+            assert after.get(name, 0) - before.get(name, 0) >= 2, name
+        for q in kernels:
+            want = cpu_s.sql(QUERIES[q]).fetch(s.store)
+            keys = sorted(want)
+            ow = np.lexsort([np.asarray(want[k], np.float64) for k in keys])
+            for t in ("gold", "bronze"):
+                cols = got[(t, q)]
+                assert sorted(cols) == keys
+                og = np.lexsort([np.asarray(cols[k], np.float64)
+                                 for k in keys])
+                for k in keys:
+                    np.testing.assert_allclose(
+                        np.asarray(cols[k], np.float64)[og],
+                        np.asarray(want[k], np.float64)[ow], **TOL)
+    finally:
+        card_s.close()
+        cpu_s.close()

@@ -1,5 +1,7 @@
-"""The port stands alone: no ``repro_torch`` module imports ``jax`` or
-``repro``, even in a process where JAX cannot load."""
+"""The port stands alone: no ``repro_torch`` module imports ``jax``,
+``repro`` or ``msgpack``, even in a process where none of them can load
+(the card's machine has neither JAX nor msgpack; the port's stores go
+through ``storage/msgpack_codec.py``)."""
 
 import os
 import pkgutil
@@ -12,6 +14,7 @@ import repro_torch
 
 SRC = Path(repro_torch.__file__).resolve().parent
 FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|repro)\b(?!_torch)", re.M)
+MSGPACK = re.compile(r"^\s*(import|from)\s+msgpack\b", re.M)
 
 
 def _modules() -> list[str]:
@@ -23,22 +26,29 @@ def test_every_module_imports_without_jax_or_repro():
     mods = _modules()
     assert "repro_torch.exec.fragment" in mods
     assert "repro_torch.kernels.ops" in mods
+    assert "repro_torch.service.service" in mods
+    assert "repro_torch.launch.sql" in mods
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
+        "sys.modules['msgpack'] = None\n"
         "import importlib\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m, mod in sys.modules.items() if mod is not None\n"
-        "             and (m in ('jax', 'repro')\n"
-        "                  or m.startswith(('jax.', 'repro.'))))\n"
+        "             and (m in ('jax', 'repro', 'msgpack')\n"
+        "                  or m.startswith(('jax.', 'repro.', 'msgpack.'))))\n"
         "print('LOADED', bad)\n"
-        "assert not bad, bad\n")
+        "assert not bad, bad\n"
+        "need = ('repro_torch.service.service', 'repro_torch.launch.sql')\n"
+        "print('IMPORTED', [m for m in need if m in sys.modules])\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=300,
                          env=dict(os.environ, PYTHONPATH=str(SRC.parent)))
     assert res.returncode == 0, res.stderr[-3000:]
     assert "LOADED []" in res.stdout
+    assert "IMPORTED ['repro_torch.service.service', " \
+        "'repro_torch.launch.sql']" in res.stdout
 
 
 def test_no_source_line_imports_jax_or_repro():
@@ -56,3 +66,20 @@ def test_forbidden_pattern_catches_what_it_should():
     assert FORBIDDEN.match("from jax.experimental import pallas as pl")
     assert not FORBIDDEN.match("from repro_torch.exec import lower")
     assert not FORBIDDEN.match("import jaxlib_like_name_is_fine")
+
+
+def test_no_source_line_imports_msgpack():
+    offenders = []
+    for path in sorted(SRC.rglob("*.py")):
+        for i, line in enumerate(path.read_text().splitlines(), 1):
+            if MSGPACK.match(line):
+                offenders.append(f"{path.relative_to(SRC)}:{i}: {line}")
+    assert not offenders, offenders
+    assert MSGPACK.match("import msgpack")
+    assert not MSGPACK.match("from repro_torch.storage import msgpack_codec")
+
+
+def test_the_service_ledger_writes_through_the_ports_codec():
+    from repro_torch.service import ledger
+    from repro_torch.storage import msgpack_codec
+    assert ledger.msgpack is msgpack_codec
