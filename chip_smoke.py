@@ -55,9 +55,17 @@ second node is served from the first's results; two orphaned requests
 invocations; and ``python -m repro_torch.launch.sql`` on the card as a
 subprocess. The top-k is also timed beside library sorts of its packed
 key. Before the kernel phases, a profile of the sort-aggregate's and the
-bf16 attention's main calls, kernel by kernel (torch.profiler). Exits
-nonzero
-on any failure. The last two lines are JSON: the kernel table, then
+bf16 attention's main calls, kernel by kernel (torch.profiler). Last,
+the model stack's serving path (``model_phase``, float32, TF32 off,
+launch counts reset around it): granite-3-2b at full width and depth
+through ``repro_torch.launch.serve.run_serving`` (batch 4, 64 prompt
+tokens, 32 new), its prefill and first decode logits against the card's
+own full forward, timed beside the bytes a decode step reads and the
+operations prefill does; then the card against the port on the CPU on
+one set of parameters: granite-3-2b at its published widths cut to 2
+layers, mamba2-130m whole, and each of the ten architectures' reduced
+configs. Exits nonzero on any failure. The last three lines are JSON:
+the model phase, the kernel table, then
 ``{"ok": true, "device": ...}``. """
 
 from __future__ import annotations
@@ -203,6 +211,9 @@ def main() -> int:
     finally:
         for s in state["sessions"]:
             s.close()
+    del state, flush
+    model = model_phase(torch, ext, dev, smi[0])
+    log(json.dumps({"model": model}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2286,6 +2297,394 @@ def standalone_kernel_phase(torch, ext, dev, state, flush):
     return [_row(kernel, source, replaces, launches.get(counter, 0),
                  results[kernel], main[kernel])
             for kernel, (source, replaces, counter) in STANDALONE.items()]
+
+
+# -- model phase: the model stack's serving path -----------------------------
+
+SERVE_ARCH = "granite-3-2b"       # the reference's serving default
+SERVE_SHAPE = dict(batch=4, prompt_len=64, new_tokens=32)
+MODEL_REL = 1e-4                  # card against the CPU port, of max |CPU|
+SELF_REL = 2e-3                   # the reference's prefill / decode check
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_to(v, device) for v in tree)
+    return None if tree is None else tree.to(device)
+
+
+def _numel(tree):
+    if isinstance(tree, dict):
+        return sum(_numel(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_numel(v) for v in tree)
+    return tree.numel()
+
+
+def _rel_err(got, want, ctx, rel):
+    """max |got - want| / max |want|, on the CPU; fails above ``rel``."""
+    got, want = got.float().cpu(), want.float().cpu()
+    if got.shape != want.shape:
+        raise AssertionError(f"{ctx}: shape {tuple(got.shape)} != "
+                             f"{tuple(want.shape)}")
+    scale = float(want.abs().max()) if want.numel() else 0.0
+    err = float((got - want).abs().max()) if want.numel() else 0.0
+    r = err / max(scale, 1e-30)
+    if not r <= rel:
+        raise AssertionError(f"{ctx}: max|err| {err:.3g} / max|want| "
+                             f"{scale:.3g} = {r:.3g} > {rel:g}")
+    return r
+
+
+def _timed(torch, fn):
+    """(fn(), ms) between two CUDA events (the host clock without a
+    card)."""
+    if not torch.cuda.is_available():
+        t0 = time.perf_counter()
+        out = fn()
+        return out, (time.perf_counter() - t0) * 1e3
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _device_busy(torch, fn, reps=3):
+    """(device ms, kernel launches, the three longest kernels) per call
+    of ``fn``: every CUDA kernel, copy and fill the profiler records over
+    ``reps`` calls (torch.profiler; elementwise kernels included)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    _sync(torch)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        _sync(torch)
+    rows = []
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0)
+        rows.append((us / 1e3 / reps, ev.count / reps, ev.key[:60]))
+    rows.sort(reverse=True)
+    return (sum(r[0] for r in rows), sum(r[1] for r in rows), rows[:3])
+
+
+def _serve_run(torch, cfg, params, tokens, frames, S, steps):
+    """Forward over every token, then prefill of the first S and
+    ``steps`` decode steps, all in float32: the tensors to compare."""
+    from repro_torch.models.decode import decode_step, prefill
+    from repro_torch.models.model import forward
+    f32 = dict(compute_dtype=torch.float32)
+    out = {"forward": forward(cfg, params, tokens, frames=frames, **f32)}
+    out["prefill"], cache = prefill(cfg, params, tokens[:, :S],
+                                    frames=frames, max_len=S + steps, **f32)
+    out["cache0"] = cache
+    for i in range(1, steps + 1):
+        out[f"decode{i}"], cache = decode_step(
+            cfg, params, cache, tokens[:, S + i - 1], **f32)
+        out[f"cache{i}"] = cache
+    return out
+
+
+class _LayerFeed:
+    """Teacher forcing of the model's layer loops (``model._layer_loop``,
+    ``decode._loop``), to hold a deep model layer by layer: while
+    ``recording``, each layer's input (its activations and cache slices)
+    and output are kept; while replaying, each layer starts from the
+    recorded input moved to ``dev``, and its output is kept beside the
+    recorded one. Float32 summation order alone moves a deep model's
+    free-running logits past 1e-4 of their largest value (PERF.md §6),
+    so there each layer is held from the same input."""
+
+    def __init__(self, torch, dev):
+        self.torch, self.dev = torch, dev
+        self.inputs, self.outputs, self.card = [], [], []
+        self.recording = True
+
+    def __enter__(self):
+        from repro_torch.models import decode, model
+        self._saved = (model._layer_loop, decode._loop)
+        model._layer_loop = lambda fn, x, stacked, n: self._loop(
+            fn, x, stacked, n, has_cache=False)[0]
+        decode._loop = self._loop
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import decode, model
+        model._layer_loop, decode._loop = self._saved
+
+    def _loop(self, layer, x, xs, n_layers, has_cache=True):
+        from repro_torch.models.model import tree_index
+        torch = self.torch
+        outs_acc = []
+        for i in range(n_layers):
+            xs_i = tree_index(xs, i)
+            cache = {k: v for k, v in xs_i.items() if k not in ("p", "pc")} \
+                if has_cache else {}
+            if self.recording:
+                self.inputs.append((x, cache))
+            else:
+                x_in, c_in = self.inputs[len(self.card)]
+                x = x_in.to(self.dev)
+                if c_in:
+                    xs_i = {**xs_i, **_tree_to(c_in, self.dev)}
+            x, outs = layer(x, xs_i)
+            (self.outputs if self.recording else self.card).append(x)
+            outs_acc.append(outs)
+        stacked = {k: torch.stack([o[k] for o in outs_acc])
+                   for k in outs_acc[0]} if outs_acc and outs_acc[0] else {}
+        return x, stacked
+
+
+def _card_against_cpu(torch, dev, cfg, label, *, S, steps, batch=2, seed=0,
+                      forced=False):
+    """One set of parameters (drawn on the CPU from ``seed``) through
+    :func:`_serve_run` on the CPU port and on the card: every logit and
+    cache tensor within MODEL_REL of max |CPU value|. ``forced``: each
+    layer on the card starts from the CPU's input to it
+    (:class:`_LayerFeed`), and each layer's output is held too; the
+    free-running error, and the CPU's own between two thread counts, are
+    logged beside it. Returns the largest relative error held and the
+    number of tensors held."""
+    import contextlib
+    import numpy as np
+    from repro_torch.models.model import init_params
+    params = init_params(cfg, torch.Generator().manual_seed(seed))
+    rng = np.random.default_rng(seed)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (batch, S + steps)).astype(np.int32))
+    frames = (torch.from_numpy(rng.normal(
+        0, 1, (batch, cfg.enc_frames, cfg.d_model)).astype(np.float32))
+        if cfg.enc_dec else None)
+    card_args = (_tree_to(params, dev), tokens.to(dev),
+                 _tree_to(frames, dev))
+    feed = _LayerFeed(torch, dev) if forced else None
+    with feed or contextlib.nullcontext():
+        t0 = time.perf_counter()
+        want = _serve_run(torch, cfg, params, tokens, frames, S, steps)
+        t_cpu = time.perf_counter() - t0
+        if feed:
+            feed.recording = False
+        t0 = time.perf_counter()
+        got = _serve_run(torch, cfg, *card_args, S, steps)
+        _sync(torch)
+        t_card = time.perf_counter() - t0
+    worst, n = 0.0, 0
+    if feed:
+        for i, (g, w) in enumerate(zip(feed.card, feed.outputs)):
+            worst = max(worst, _rel_err(g, w, f"{label} layer call {i}",
+                                        MODEL_REL))
+        n += len(feed.outputs)
+        if len(feed.card) != len(feed.outputs):
+            raise AssertionError(f"{label}: {len(feed.card)} layer calls "
+                                 f"on the card, {len(feed.outputs)} on "
+                                 f"the CPU")
+    for name, w in want.items():
+        g = got[name]
+        if isinstance(w, dict):
+            if sorted(g) != sorted(w):
+                raise AssertionError(f"{label} {name}: keys {sorted(g)} "
+                                     f"!= {sorted(w)}")
+            for key, wv in w.items():
+                if key == "pos":
+                    if int(g[key]) != int(wv) or g[key].dtype != wv.dtype:
+                        raise AssertionError(f"{label} {name} pos")
+                    continue
+                if g[key].dtype != wv.dtype:
+                    raise AssertionError(f"{label} {name} {key}: dtype "
+                                         f"{g[key].dtype} != {wv.dtype}")
+                worst = max(worst, _rel_err(g[key], wv,
+                                            f"{label} {name} {key}",
+                                            MODEL_REL))
+                n += 1
+        else:
+            worst = max(worst, _rel_err(g, w, f"{label} {name}", MODEL_REL))
+            n += 1
+    out = {"max_rel_err": worst, "tensors": n, "forced": forced}
+    how = "each layer from the CPU's input to it, " if forced else ""
+    log(f"model {label}: card = CPU port on {n} tensors ({how}forward, "
+        f"prefill, {steps} decode step(s), caches), max|err|/max|CPU| "
+        f"{worst:.3g} <= {MODEL_REL:g}; CPU {t_cpu:.2f} s, card "
+        f"{t_card:.2f} s")
+    if forced:
+        # free running, for the record: the card's logits against the
+        # CPU's, and the CPU's own at one thread against its default
+        free = _serve_run(torch, cfg, *card_args, S, steps)
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            one = _serve_run(torch, cfg, params, tokens, frames, S, steps)
+        finally:
+            torch.set_num_threads(threads)
+
+        def spread(a):
+            return max(float((a[k].float().cpu() - want[k]).abs().max())
+                       / float(want[k].abs().max())
+                       for k in want if not isinstance(want[k], dict))
+        out["free_running_rel_err"] = spread(free)
+        out["cpu_threads_rel_err"] = spread(one)
+        log(f"model {label} free running (logits, not held): card against "
+            f"CPU {out['free_running_rel_err']:.3g} of max|CPU|; the CPU "
+            f"at 1 thread against {threads} threads "
+            f"{out['cpu_threads_rel_err']:.3g}")
+    return out
+
+
+def model_phase(torch, ext, dev, smi):
+    """The model stack's serving path on the card, in float32 with TF32
+    off, the launch counts reset just before and read just after:
+    (a) ``launch.serve.run_serving`` at granite-3-2b's full width and
+    depth (batch 4, 64 prompt tokens, 32 new), its last prefill logits
+    and first decode logits held against the card's own full forward on
+    the same parameters (the reference's 2e-3 of max |logit|), timed
+    beside the bounds a step reads and computes; (b) the card against
+    the CPU port on one set of parameters: granite-3-2b at its published
+    widths cut to 2 layers, and mamba2-130m whole; (c) every
+    architecture's reduced config through prefill and one decode step
+    on the card against the CPU port."""
+    import dataclasses
+    import statistics
+    from repro_torch.configs import ARCHS, get_config, get_reduced
+    from repro_torch.launch import serve
+    from repro_torch.models.decode import decode_step, prefill
+    from repro_torch.models.model import forward
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    ext.reset_launches()                     # the model path starts here
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.empty(0, device=dev)           # the context, before its stats
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+
+    # (a) full width and depth through the entry point
+    trace: dict = {}
+    out, stats = serve.run_serving(arch=SERVE_ARCH, reduced=False,
+                                   device=dev, trace=trace, **SERVE_SHAPE)
+    peak = (torch.cuda.max_memory_allocated(dev) - base) if on_card else 0
+    cfg, params, prompts = trace["cfg"], trace["params"], trace["prompts"]
+    B, P = prompts.shape
+    f32 = dict(compute_dtype=torch.float32)
+    full = forward(cfg, params, torch.cat([prompts, out[:, :1]], 1), **f32)
+    scale = float(full[:, P - 1].abs().max())
+    self_err = {}
+    for name, got, at in (("prefill", trace["prefill_logits"], P - 1),
+                          ("decode", trace["decode_logits"], P)):
+        err = float((got - full[:, at]).abs().max()) / scale
+        self_err[name] = err
+        if not err < SELF_REL:
+            raise AssertionError(f"model {SERVE_ARCH}: {name} logits "
+                                 f"{err:.3g} of max|logit| from the full "
+                                 f"forward (>= {SELF_REL:g})")
+    if not torch.equal(out[:, 0], trace["prefill_logits"].argmax(-1).to(
+            out.dtype)):
+        raise AssertionError("model: first token is not the prefill argmax")
+    # warm times: median of 5 prefills and of the 31 steps of a second
+    # decode loop, each call alone between CUDA events
+    new = SERVE_SHAPE["new_tokens"]
+    ms_prefill, ms_step = [], []
+    for _ in range(5):
+        (logits, cache), ms = _timed(torch, lambda: prefill(
+            cfg, params, prompts, max_len=P + new, **f32))
+        ms_prefill.append(ms)
+    tok = logits.argmax(-1).to(torch.int32)
+    for _ in range(new - 1):
+        (logits, cache), ms = _timed(torch, lambda: decode_step(
+            cfg, params, cache, tok, **f32))
+        tok = logits.argmax(-1).to(torch.int32)
+        ms_step.append(ms)
+    busy = {}
+    if on_card:
+        # the device's share of a warm step: kernel time against the
+        # step's wall between events
+        fixed = cache
+        for name, fn, wall in (
+                ("prefill", lambda: prefill(cfg, params, prompts,
+                                            max_len=P + new, **f32),
+                 statistics.median(ms_prefill)),
+                ("decode", lambda: decode_step(cfg, params, fixed, tok,
+                                               **f32),
+                 statistics.median(ms_step))):
+            dev_ms, kernels, top = _device_busy(torch, fn)
+            busy[name] = {"device_ms": dev_ms, "launches": kernels,
+                          "idle_share": 1.0 - dev_ms / wall}
+            log(f"model (a) warm {name}: device busy {dev_ms:.3f} ms of "
+                f"{wall:.3f} ms ({kernels:g} launches a call, idle share "
+                f"{1.0 - dev_ms / wall:.3f}); longest: "
+                + "; ".join(f"{k} {ms:.3f} ms x{n:g}" for ms, n, k in top))
+    n_all, n_blocks = _numel(params), _numel(params["blocks"])
+    bytes_all = 4 * n_all
+    # a decode step reads every weight once; prefill's products are
+    # 2 flops per block weight per token (the attention scores and the
+    # last position's logits add under 1 %)
+    decode_bound = 1e3 * max(bytes_all / HBM_BYTES_PER_S,
+                             2 * n_all * B / FP32_FLOPS)
+    prefill_bound = 1e3 * max(bytes_all / HBM_BYTES_PER_S,
+                              2 * n_blocks * B * P / FP32_FLOPS)
+    a = {"arch": SERVE_ARCH, "layers": cfg.n_layers, "d_model": cfg.d_model,
+         **SERVE_SHAPE, "params": n_all, "block_params": n_blocks,
+         "param_bytes": bytes_all,
+         "prefill_ms": stats["prefill_s"] * 1e3,
+         "decode_ms": stats["decode_s"] * 1e3,
+         "decode_ms_per_step": stats["decode_s"] * 1e3 / (new - 1),
+         "tokens_per_s": stats["tokens_per_s"],
+         "warm_prefill_ms": statistics.median(ms_prefill),
+         "warm_decode_ms_per_step": statistics.median(ms_step),
+         "prefill_bound_ms": prefill_bound, "decode_bound_ms": decode_bound,
+         "peak_mem_bytes": peak, "self_rel_err": self_err,
+         "device_busy": busy}
+    log(f"model (a) {SERVE_ARCH} full ({cfg.n_layers} layers, d "
+        f"{cfg.d_model}, {n_all / 1e9:.3f} B parameters, "
+        f"{bytes_all / 1e9:.2f} GB float32) through run_serving on {smi}: "
+        f"prefill {a['prefill_ms']:.2f} ms (warm {a['warm_prefill_ms']:.3f}"
+        f" ms; bound {prefill_bound:.3f} ms), decode {a['decode_ms']:.2f} "
+        f"ms for {new - 1} steps, "
+        f"{a['decode_ms_per_step']:.3f} ms a step (warm "
+        f"{a['warm_decode_ms_per_step']:.3f}; bound {decode_bound:.3f} ms),"
+        f" {a['tokens_per_s']:.1f} tok/s; peak memory {peak / 1e9:.2f} GB; "
+        f"prefill / decode logits against the card's forward "
+        f"{self_err['prefill']:.3g} / {self_err['decode']:.3g} of "
+        f"max|logit| (< {SELF_REL:g})")
+    del trace, params, full, logits, cache, out
+    if on_card:
+        torch.cuda.empty_cache()
+        left = torch.cuda.memory_allocated(dev)
+        log(f"model: after freeing, {left / 1e9:.3f} GB allocated")
+
+    # (b) the card against the CPU port at published widths
+    b = {"granite-3-2b x2 layers": _card_against_cpu(
+            torch, dev, dataclasses.replace(get_config(SERVE_ARCH),
+                                            n_layers=2),
+            "granite-3-2b (2 of 40 layers)", S=32, steps=5),
+         "mamba2-130m": _card_against_cpu(
+            torch, dev, get_config("mamba2-130m"), "mamba2-130m (whole)",
+            S=32, steps=5, forced=True)}
+    # (c) every family at its reduced config
+    c = {arch: _card_against_cpu(torch, dev, get_reduced(arch),
+                                 f"{arch} reduced", S=48, steps=1)
+         for arch in ARCHS}
+    _sync(torch)
+    launches = ext.launches()                # ... and ends here
+    log(f"launches on the model path: {launches or 'none'} (the "
+        f"reference's model path calls no kernel)")
+    for name, n in sorted(launches.items()):
+        log(f"  model path launched {name} x{n}")
+    log(f"model phase: {time.perf_counter() - t_phase:.1f} s")
+    return {"card": smi, "serve": a, "card_vs_cpu": b, "families": c,
+            "launches": launches, "tf32": False}
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -1,7 +1,11 @@
 """Count wrong rows when one statement runs several times at once with the
 result cache off, on the card: the same TPC-H Q6, Q12 and Q3 for two
 tenants through a ``QueryService`` (as ``tests/test_torch_cuda.py``'s
-service case), per engine mode, against the port's oracle.
+service case), per engine mode, against the port's oracle. Each
+execution names its pipelines' results and partial streams for itself
+(``QueryEngine._execution_names``), so every scenario should count 0;
+under one shared name, pipelined runs that sized their fleets apart read
+each other's objects.
 
 Scenarios, each ``trials`` times, on TPC-H SF 0.01 (4 partitions):
 - ``service-pipelined`` / ``service-barrier``: the service case, its

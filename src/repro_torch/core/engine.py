@@ -39,6 +39,7 @@ import dataclasses
 import heapq
 import threading
 import time
+import uuid
 from typing import Callable
 
 import numpy as np
@@ -290,6 +291,9 @@ class QueryEngine:
         # source this plan itself produces until its producer thread
         # has committed (cache hit, or streams reset for execution)
         self._source_gates: dict[str, dict] = {}
+        # sem_hash -> this execution's name for it in the registry and
+        # the store (_execution_names); empty while the result cache is on
+        self._exec_names: dict[str, str] = {}
         self._cancel_check = cancel_check
         self.admission: AdmissionController = self.platform.admission
         cfg = self.config
@@ -354,6 +358,7 @@ class QueryEngine:
                 time.sleep(policy.backoff_s(q_attempt))
 
     def _execute_plan_once(self, plan: PhysicalPlan) -> QueryResult:
+        self._exec_names = self._execution_names(plan)
         if self.config.pipelined:
             return self._execute_plan_pipelined(plan)
         t_wall = time.perf_counter()
@@ -495,6 +500,29 @@ class QueryEngine:
                 end[pid] = r.sim_end_s
         stats.sim_latency_s = max(end.values()) if end else 0.0
 
+    # -- execution names ------------------------------------------------------
+    def _execution_names(self, plan: PhysicalPlan) -> dict[str, str]:
+        """With the result cache off no claim dedupes two live runs of
+        one pipeline, so each execution names its plan's pipelines
+        ``{sem_hash}@{query_id}-{run}`` wherever it writes or reads
+        their results: the result prefix, the partial streams, the
+        registry entry and the upstream lookups. Sharing the semantic
+        hash there let two runs that sized their fleets apart read each
+        other's objects. ``run`` is fresh for every drive of the plan,
+        so two processes over one store (or a re-drive) never collide.
+        With the cache on the semantic hash is the name: a claim lets
+        one run execute and the others share its result."""
+        if self.config.use_result_cache:
+            return {}
+        run = uuid.uuid4().hex[:8]
+        return {p.sem_hash: f"{p.sem_hash}@{self.query_id}-{run}"
+                for p in plan.pipelines.values()}
+
+    def _name(self, sem: str) -> str:
+        """This execution's registry and store name for ``sem``; a source
+        the plan does not produce keeps its semantic hash."""
+        return self._exec_names.get(sem, sem)
+
     # -- result location ------------------------------------------------------
     def _result_locations(self, root: Pipeline) -> list[str]:
         """Resolve the root pipeline's objects from its registry entry.
@@ -504,11 +532,12 @@ class QueryEngine:
         count) than the current plan — semantic hashing guarantees only
         logical equivalence (section 3.4).
         """
-        entry = self.registry.lookup(root.sem_hash)
+        name = self._name(root.sem_hash)
+        entry = self.registry.lookup(name)
         if entry is not None:
             prefix, n = entry["prefix"], entry["n_fragments"]
         else:  # cache disabled + nothing registered (defensive)
-            prefix, n = f"results/{root.sem_hash}", root.n_fragments
+            prefix, n = f"results/{name}", root.n_fragments
         return [f"{prefix}/f{f:04d}/out.spax" for f in range(n)]
 
     # -- pipeline scheduling ----------------------------------------------------
@@ -570,14 +599,15 @@ class QueryEngine:
                 # claim: a waiter that re-claims resets them fresh in
                 # begin_partial, so abort-then-abandon cannot poison the
                 # new owner's streams — the reverse order could
-                self.registry.abort_partial(p.sem_hash)
+                self.registry.abort_partial(self._name(p.sem_hash))
             if claimed:
                 self.registry.abandon(p.sem_hash)
             raise
 
     def _execute_pipeline(self, p: Pipeline, stats: QueryStats,
                           report: PipelineReport) -> PipelineReport:
-        prefix = f"results/{p.sem_hash}"
+        name = self._name(p.sem_hash)
+        prefix = f"results/{name}"
         cfg = self.config
         pipelined = cfg.pipelined
         sources = self._resolve_sources(p.op, pipelined=pipelined)
@@ -669,10 +699,10 @@ class QueryEngine:
                 # so a stale sealed manifest from an earlier run of
                 # this sem cannot admit consumers in the meantime
                 self.registry.begin_partial(
-                    p.sem_hash, stream="l0", n_producers=p.n_fragments,
+                    name, stream="l0", n_producers=p.n_fragments,
                     prefix=f"{prefix}/l0")
                 self.registry.begin_partial(
-                    p.sem_hash,
+                    name,
                     n_producers=exchange.merge_group_count(
                         p.n_fragments),
                     prefix=prefix, partitioning=part_dict,
@@ -683,7 +713,7 @@ class QueryEngine:
                     daemon=True, name=f"{self.query_id}-p{p.pid}-merge")
             else:
                 self.registry.begin_partial(
-                    p.sem_hash, n_producers=p.n_fragments, prefix=prefix,
+                    name, n_producers=p.n_fragments, prefix=prefix,
                     partitioning=part_dict, schema=p.output_schema)
             # producer committed to executing: admit consumers, but only
             # to entries published from here on (anything older is a
@@ -698,7 +728,7 @@ class QueryEngine:
                 # and only now launch the merge wave, so its workers
                 # also queue strictly behind the producers they drain
                 self.registry.mark_all_submitted(
-                    p.sem_hash, p.n_fragments, stream=producer_stream)
+                    name, p.n_fragments, stream=producer_stream)
                 if merge_thread is not None:
                     merge_thread.start()
 
@@ -758,7 +788,7 @@ class QueryEngine:
                 # fail fast: poison the streams so in-flight consumers
                 # and the merge wave unwind instead of sitting out their
                 # top-up timeout, then collect the wave thread
-                self.registry.abort_partial(p.sem_hash)
+                self.registry.abort_partial(name)
                 if merge_thread is not None:
                     merge_thread.join()
             raise
@@ -786,20 +816,20 @@ class QueryEngine:
                     # included) so merge workers drain the tail and stop
                     # watching, then collect the concurrent wave
                     self.registry.finish_partial(
-                        p.sem_hash, stream="l0", n_producers=n_total)
+                        name, stream="l0", n_producers=n_total)
                     merge_thread.join()
                     err = merge_box.get("error")
                     if err is not None:
                         raise err
                     publish_n = merge_box["publish_n"]
-                self.registry.finish_partial(p.sem_hash,
+                self.registry.finish_partial(name,
                                              n_producers=publish_n)
             except BaseException:
-                self.registry.abort_partial(p.sem_hash)
+                self.registry.abort_partial(name)
                 raise
         self._record_calibration(p, report)
         self.registry.publish(
-            p.sem_hash, prefix=prefix, n_fragments=publish_n,
+            name, prefix=prefix, n_fragments=publish_n,
             partitioning=part_dict, schema=p.output_schema,
             stats=self._manifest_stats(report),
             cost_cents=report.cost_cents)
@@ -816,7 +846,8 @@ class QueryEngine:
         try:
             gate = self._source_gates.get(p.sem_hash) or {}
             self.registry.await_source_ready(
-                p.sem_hash, fraction=self.config.pipeline_start_fraction,
+                self._name(p.sem_hash),
+                fraction=self.config.pipeline_start_fraction,
                 cost_model=self.cost_model,
                 stream="l0", cancel_check=self._check_cancel,
                 timeout_s=self.config.pipelined_wait_timeout_s,
@@ -907,22 +938,22 @@ class QueryEngine:
                 "strategy": "direct"}
         mop_extra = {}
         on_all = None
+        name = self._name(p.sem_hash)
         if pipelined:
             # the consumer-facing main stream: downstream admission
             # gates on the wave's G partitions, not the l0 producers
             self.registry.begin_partial(
-                p.sem_hash, n_producers=G, prefix=prefix,
+                name, n_producers=G, prefix=prefix,
                 partitioning=dict(p.partitioning.to_dict(),
                                   layout=exchange.get_strategy(
                                       part.strategy).layout),
                 schema=p.output_schema)
             mop_extra = {
-                "manifest_key": self.registry.partial_key(p.sem_hash,
-                                                          "l0"),
+                "manifest_key": self.registry.partial_key(name, "l0"),
                 "wait_timeout_s": cfg.pipelined_wait_timeout_s}
 
             def on_all() -> None:
-                self.registry.mark_all_submitted(p.sem_hash, G)
+                self.registry.mark_all_submitted(name, G)
         specs = [{
             "query_id": p.sem_hash, "pipeline": p.pid, "fragment": j,
             "n_fragments": G,
@@ -1054,7 +1085,8 @@ class QueryEngine:
         n = None
         if spec["fragment"] >= spec["n_fragments"]:
             n = spec["fragment"] + 1    # reassignment split grew the fleet
-        self.registry.publish_partial(p.sem_hash, spec["fragment"], info,
+        self.registry.publish_partial(self._name(p.sem_hash),
+                                      spec["fragment"], info,
                                       stream=stream, n_producers=n)
 
     def _pilot_scan(self, p: Pipeline, report: PipelineReport,
@@ -1084,7 +1116,8 @@ class QueryEngine:
             "query_id": p.sem_hash, "pipeline": p.pid, "fragment": 0,
             "n_fragments": 1, "op": op,
             "scan_units": p.scan_units[:1],
-            "output": {"prefix": f"results/{p.sem_hash}/pilot",
+            "output": {"prefix":
+                       f"results/{self._name(p.sem_hash)}/pilot",
                        "partitioning": {"kind": "single"},
                        "schema": p.output_schema},
             "sources": {},
@@ -1152,7 +1185,7 @@ class QueryEngine:
             # extrapolated ×(n/k) — cheap enough to revoke a filter
             # before paying the sealed-filter wait
             for stream in ("l0", "partial"):
-                man = self.registry.partial_manifest(build_sem,
+                man = self.registry.partial_manifest(self._name(build_sem),
                                                      stream=stream)
                 infos = list((man or {}).get("done", {}).values())
                 if not infos:
@@ -1172,7 +1205,7 @@ class QueryEngine:
             return None
 
         words, build_rows, build_distinct = \
-            self._await_build_filter(build_sem)
+            self._await_build_filter(self._name(build_sem))
         if words is None:
             report.semijoin = dict(sj, applied=False,
                                    reason="filter unavailable")
@@ -1206,7 +1239,7 @@ class QueryEngine:
         return {"key": list(sj["key"]), "bits": wire["bits"],
                 "k": wire["k"], "mode": wire["mode"], "words": words}
 
-    def _await_build_filter(self, build_sem: str
+    def _await_build_filter(self, name: str
                             ) -> tuple[bytes | None, int | None,
                                        int | None]:
         """Merged Bloom words of a *sealed* build exchange, with the
@@ -1219,10 +1252,11 @@ class QueryEngine:
         filter the moment the stream seals, slightly before the entry
         publishes). Returns ``(None, None, None)`` on the bounded-wait
         timeout or an aborted build — the probe then launches
-        unfiltered, which is always correct."""
+        unfiltered, which is always correct. ``name`` is the build
+        pipeline's execution name (``_name``)."""
         deadline = time.time() + self.config.semijoin_wait_timeout_s
         while True:
-            entry = self.registry.lookup(build_sem)
+            entry = self.registry.lookup(name)
             if entry is not None:
                 st = entry.get("stats") or {}
                 wire = st.get("semijoin_bloom")
@@ -1232,7 +1266,7 @@ class QueryEngine:
                 return (wire["words"], st.get("rows_out"),
                         int(sum(pd)) if pd else None)
             for stream in ("l0", "partial"):
-                man = self.registry.partial_manifest(build_sem,
+                man = self.registry.partial_manifest(name,
                                                      stream=stream)
                 if man is None:
                     continue
@@ -1489,7 +1523,7 @@ class QueryEngine:
                     if pipelined:
                         sources[sem] = self._await_source(sem)
                     else:
-                        entry = self.registry.lookup(sem)
+                        entry = self.registry.lookup(self._name(sem))
                         if entry is None:
                             raise QueryAborted(
                                 f"upstream result {sem} missing",
@@ -1511,10 +1545,11 @@ class QueryEngine:
         cfg = self.config
         deadline = time.time() + cfg.pipelined_wait_timeout_s
         floor = self._await_source_gate(sem, deadline)
+        name = self._name(sem)
         while True:
             try:
                 entry = self.registry.await_source_ready(
-                    sem, fraction=cfg.pipeline_start_fraction,
+                    name, fraction=cfg.pipeline_start_fraction,
                     cost_model=self.cost_model,
                     cancel_check=self._check_cancel,
                     timeout_s=max(deadline - time.time(), 0.01),
@@ -1535,18 +1570,18 @@ class QueryEngine:
                 continue
             if entry is not None:
                 return entry
-            man = self.registry.partial_manifest(sem)
+            man = self.registry.partial_manifest(name)
             if man is None:
                 # sealed and retired between the gate and this read —
                 # the barrier-complete entry must exist now
-                entry = self.registry.lookup(sem)
+                entry = self.registry.lookup(name)
                 if entry is not None and (
                         floor is None
                         or entry.get("published_at", 0.0) >= floor):
                     return entry
                 raise QueryAborted(f"upstream result {sem} missing",
                                    post_mortem={"source": sem})
-            return self._partial_source_entry(sem, man)
+            return self._partial_source_entry(name, man)
 
     def _await_source_gate(self, sem: str,
                            deadline: float) -> float | None:
@@ -1578,7 +1613,7 @@ class QueryEngine:
             gate["floor"] = floor
             gate["event"].set()
 
-    def _partial_source_entry(self, sem: str, man: dict) -> dict:
+    def _partial_source_entry(self, name: str, man: dict) -> dict:
         """Pseudo registry entry for a partially available source: the
         pilot-K estimate — the first K landed producers' stats summed
         and extrapolated ×(n/K) — plus the manifest key consumer
@@ -1620,12 +1655,12 @@ class QueryEngine:
         return {
             "complete": False, "pipelined": True,
             "partial": {"done": len(done), "of": n, "pilot_k": k},
-            "prefix": man.get("prefix") or f"results/{sem}",
+            "prefix": man.get("prefix") or f"results/{name}",
             "n_fragments": n,
             "partitioning": man.get("partitioning") or {},
             "schema": man.get("schema"),
             "stats": est,
-            "manifest_key": self.registry.partial_key(sem),
+            "manifest_key": self.registry.partial_key(name),
             "wait_timeout_s": cfg.pipelined_wait_timeout_s,
         }
 

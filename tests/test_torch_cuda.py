@@ -1022,11 +1022,12 @@ def test_service_on_the_card_equals_the_cpu_port(session):
     session (result cache off, so every request runs its fragments; the
     benchmark suites' planner, so Q3's final runs the top-k kernel): each
     request SUCCEEDED, each kernel launched for both tenants, and the rows
-    equal the port's on the CPU over the same store. Barrier mode, as
-    ``chip_smoke.py``'s fleet: with the cache off, two live runs of one
-    pipeline share its result prefix and partial stream, and in pipelined
-    mode they can size their fleets apart and mix each other's objects
-    (``probes/service_race.py``; a fault of both packages' engine)."""
+    equal the port's on the CPU over the same store. Pipelined mode: with
+    the cache off the two tenants' runs of one statement are live at once,
+    and each execution names its results and partial streams for itself
+    (``QueryEngine._execution_names``), so fleets sized apart do not mix
+    each other's objects (``probes/service_race.py``,
+    ``tests/test_torch_race.py``)."""
     from repro_torch.service import QueryService, TenantConfig
     s, catalog, _ = session
     planner = PlannerConfig(bytes_per_worker=500_000,
@@ -1035,7 +1036,7 @@ def test_service_on_the_card_equals_the_cpu_port(session):
     card_s = connect(s.store, catalog, quota=16, max_concurrent_queries=4,
                      config=CoordinatorConfig(planner=planner,
                                               use_result_cache=False,
-                                              pipelined=False))
+                                              pipelined=True))
     cpu_s = connect(s.store, catalog, quota=16, device="cpu",
                     config=CoordinatorConfig(planner=planner,
                                              use_result_cache=False,
@@ -1071,3 +1072,71 @@ def test_service_on_the_card_equals_the_cpu_port(session):
     finally:
         card_s.close()
         cpu_s.close()
+
+
+# -- the model stack on the card
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to(v, device) for v in tree)
+    return tree.to(device)
+
+
+@pytest.mark.parametrize("arch", ["granite-3-2b", "hymba-1.5b",
+                                  "granite-moe-1b-a400m"])
+def test_model_serving_on_the_card_equals_the_cpu_port(arch):
+    """A reduced config's prefill and two decode steps on the card, in
+    float32 with TF32 off, against the port on the CPU on the same
+    parameters: logits and every cache tensor within 1e-4 of the largest
+    CPU value, the same greedy tokens. The model path launches none of
+    the port's kernels (the reference's calls none)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from repro_torch.configs import get_reduced
+    from repro_torch.models.decode import decode_step, prefill
+    from repro_torch.models.model import init_params
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        cfg = get_reduced(arch)
+        card = torch.device("cuda", 0)
+        params = init_params(cfg, torch.Generator().manual_seed(0))
+        tokens = torch.from_numpy(np.random.default_rng(0).integers(
+            0, cfg.vocab, (2, 50)).astype(np.int32))
+        runs = {}
+        before = ext.launches()
+        for dev in (torch.device("cpu"), card):
+            p, tok = _to(params, dev), tokens.to(dev)
+            out = {}
+            out["last"], cache = prefill(cfg, p, tok[:, :48], max_len=50,
+                                         compute_dtype=torch.float32)
+            out["cache0"] = cache
+            for i in (1, 2):
+                out[f"dec{i}"], cache = decode_step(
+                    cfg, p, cache, tok[:, 47 + i],
+                    compute_dtype=torch.float32)
+                out[f"cache{i}"] = cache
+            runs[dev.type] = _to(out, torch.device("cpu"))
+        assert ext.launches() == before
+        cpu, got = runs["cpu"], runs["cuda"]
+        for name in ("last", "dec1", "dec2"):
+            scale = float(cpu[name].abs().max())
+            assert float((got[name] - cpu[name]).abs().max()) \
+                <= 1e-4 * scale, (arch, name)
+            assert torch.equal(got[name].argmax(-1), cpu[name].argmax(-1))
+        for step in ("cache0", "cache1", "cache2"):
+            assert sorted(got[step]) == sorted(cpu[step])
+            for key, want in cpu[step].items():
+                if key == "pos":
+                    assert int(got[step][key]) == int(want)
+                    continue
+                scale = float(want.abs().max())
+                assert float((got[step][key] - want).abs().max()) \
+                    <= 1e-4 * scale, (arch, step, key)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32

@@ -83,3 +83,52 @@ def test_the_service_ledger_writes_through_the_ports_codec():
     from repro_torch.service import ledger
     from repro_torch.storage import msgpack_codec
     assert ledger.msgpack is msgpack_codec
+
+
+MODEL_STACK = ("repro_torch.models.moe", "repro_torch.models.model",
+               "repro_torch.models.decode", "repro_torch.models.steps",
+               "repro_torch.launch.serve")
+
+
+def test_the_model_stack_imports_without_jax_or_repro():
+    """The serving path's modules load in a process where ``jax`` and
+    ``repro`` cannot, and load neither, nor an optimiser of the port."""
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'repro', 'msgpack'):\n"
+        "    sys.modules[m] = None\n"
+        "import importlib\n"
+        f"for m in {MODEL_STACK!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m, mod in sys.modules.items() if mod is not None\n"
+        "             and (m in ('jax', 'repro', 'msgpack')\n"
+        "                  or m.startswith(('jax.', 'repro.', 'msgpack.'))\n"
+        "                  or m.startswith('repro_torch.optim')))\n"
+        "print('LOADED', bad)\n"
+        "assert not bad, bad\n"
+        f"need = {MODEL_STACK!r}\n"
+        "print('IMPORTED', [m for m in need if m in sys.modules])\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300,
+                         env=dict(os.environ, PYTHONPATH=str(SRC.parent)))
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "LOADED []" in res.stdout
+    assert f"IMPORTED {list(MODEL_STACK)!r}" in res.stdout
+
+
+def test_the_model_stack_serves_with_jax_blocked():
+    """A reduced config through ``run_serving`` on the CPU, with ``jax``
+    and ``repro`` blocked."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "from repro_torch.launch.serve import run_serving\n"
+        "out, _ = run_serving(arch='granite-moe-1b-a400m', batch=2,\n"
+        "                     prompt_len=8, new_tokens=3, device='cpu')\n"
+        "print('SHAPE', tuple(out.shape))\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300,
+                         env=dict(os.environ, PYTHONPATH=str(SRC.parent)))
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "SHAPE (2, 3)" in res.stdout
