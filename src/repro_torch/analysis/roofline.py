@@ -24,14 +24,18 @@ fits a block's shared memory here (the SF-1 Q12 build side is 1.5 M
 rows × 16 B ≈ 24 MB, the SF-1 filter 256 KiB): both kernels read them
 from global memory through the 50 MB L2. So no memory budget caps the
 join's build side; the kernel's own limit is its uint32 positions
-(``JOIN_MAX_BUILD_ROWS``), and its wrapper raises past it.
+(``JOIN_MAX_BUILD_ROWS``, and fewer than ``JOIN_MAX_PROBE_ROWS`` probe
+rows), and its wrapper raises past it; the dispatch arm
+(``exec/lower.py``) takes the generic join there, as the reference's arm
+does past its cap.
 
 The sort kernels (sort-aggregate, top-k) kept the whole batch resident
 in VMEM, which capped the rows they took (``resident_sort_tiling``).
 Here the radix sort runs in global memory and stages only blocks in
 shared memory (:func:`sort_tiling`), so what caps the rows is the
 kernels' int32 positions and segment counts (``SORT_MAX_ROWS``, the
-largest power of two they hold), past which their wrappers raise. A
+largest power of two they hold), past which their wrappers raise and
+their dispatch arms take the generic torch path, as the reference's do. A
 top-k batch of at most 2^14 rows sorts in the shared memory of one
 thread-block cluster instead (:func:`topk_block_rows`).
 
@@ -65,6 +69,7 @@ _COL_BYTES = 8          # upper bound of one column lane (i64/f64)
 _MASK_BYTES = 1         # bool validity mask
 _SMEM_RESERVED = 1024   # per-CTA shared memory the runtime keeps
 JOIN_MAX_BUILD_ROWS = 1 << 31   # the join kernel's uint32 build positions
+JOIN_MAX_PROBE_ROWS = 1 << 31   # its int32 probe rows: fewer than this
 SORT_MAX_ROWS = 1 << 30         # int32 positions and segment counts
 SORT_MAX_LANES = 16             # sortnet.cuh kMaxLanes: invalid flag + keys
 SORT_MAX_AGGS = 8               # sortnet.cuh kMaxScanAggs

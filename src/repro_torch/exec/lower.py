@@ -498,8 +498,14 @@ def _lower_join_probe(m: Match) -> Lowered:
     probe predicates (``probe_preds``, the program's probe-predicate
     slot) before its key search, then the residual predicates
     (``preds``), the group id and the aggregates over the hits and
-    their payload."""
+    their payload. A build side past the kernel's cap
+    (``roofline.JOIN_MAX_BUILD_ROWS``), or a probe batch of
+    ``roofline.JOIN_MAX_PROBE_ROWS`` rows or more, takes the generic
+    join and direct aggregation instead, as the reference's arm does
+    past its cap."""
     build_pred = _compile_pred(m.build_preds)
+    probe_pred = _compile_pred(m.probe_preds)
+    agg_pred = _compile_pred(m.preds)
     program, tiling = m.program, m.tiling
     K = program.n_groups
     group_cols, sizes = list(m.group_cols), list(m.sizes)
@@ -507,12 +513,24 @@ def _lower_join_probe(m: Match) -> Lowered:
     probe_key, build_key = m.probe_key, m.build_key
     payload = [c for c in m.payload if c in program.names]
     leaves = [("in0", m.leaf), ("in1", m.build_leaf)]
+    join_generic = xops.make_pk_join_probe(probe_key, build_key,
+                                           list(m.payload))
+    agg_generic, _ = xops.make_direct_agg(
+        group_cols, sizes, [(n, fn, expr_from_dict(a) if a else None)
+                            for n, fn, a in m.aggs])
 
     def fn(blocks):
         pcols, pmask = blocks["in0"]
         bcols, bmask = blocks["in1"]
         if build_pred is not None:
             bmask = bmask & build_pred(bcols)
+        if int(bmask.shape[0]) > roofline.JOIN_MAX_BUILD_ROWS \
+                or int(pmask.shape[0]) >= roofline.JOIN_MAX_PROBE_ROWS:
+            pm = pmask if probe_pred is None else pmask & probe_pred(pcols)
+            jcols, jmask = join_generic(pcols, pm, bcols, bmask)
+            if agg_pred is not None:
+                jmask = jmask & agg_pred(jcols)
+            return agg_generic(jcols, jmask)
         sk, order = xops.sort_build_side(bcols, bmask, build_key)
         spay = {c: bcols[c][order] for c in payload if c not in pcols}
         res = kops.fused_join_probe_agg(pcols, pmask, sk, spay,
@@ -555,24 +573,36 @@ def _lower_bloom_filter(m: Match) -> Lowered:
                    m.kernel, m.tiling)
 
 
+def _is_pow2(n: int) -> bool:
+    return n > 0 and n & (n - 1) == 0
+
+
 def _lower_sort_agg(m: Match) -> Lowered:
     """The predicate, the int64 group keys and the f64 aggregate
     arguments on the generic torch ops (as the reference evaluates them
     outside its kernel), then one kernel call: sort, segmented scan,
-    compaction. Both wrappers raise on a capacity that is not a power of
-    two (``bucket_capacity`` gives none) and the CUDA one past the
-    kernel's row limit."""
+    compaction. A capacity that is not a power of two, or one past the
+    kernel's rows (the tiling's ``resident_rows``, ``SORT_MAX_ROWS``),
+    takes the generic sort-aggregate instead, as the reference's arm
+    does; the wrappers raise there."""
     pred = _compile_pred(m.preds)
     group_cols, tiling = list(m.group_cols), m.tiling
     names = [name for name, _, _ in m.aggs]
     fns = [fn for _, fn, _ in m.aggs]
     args = [compile_expr(expr_from_dict(arg)) if arg is not None else None
             for _, _, arg in m.aggs]
+    generic = xops.make_sort_agg(
+        group_cols, [(n, fn, expr_from_dict(a) if a else None)
+                     for n, fn, a in m.aggs])
+    cap = tiling.resident_rows
     leaf_id = "in0"
 
     def fn(blocks):
         cols, mask = blocks[leaf_id]
         m2 = mask if pred is None else mask & pred(cols)
+        n = int(mask.shape[0])
+        if not _is_pow2(n) or n > cap:
+            return generic(cols, m2)
         keys = [cols[c].to(KEY_DTYPE) for c in group_cols]
         values = []
         for f, argf in zip(fns, args):
@@ -594,15 +624,21 @@ def _lower_sort_agg(m: Match) -> Lowered:
 def _lower_topk(m: Match) -> Lowered:
     """The predicate on the generic torch ops, then one kernel call: the
     batch sorted by the ORDER BY keys, the mask kept on the first
-    ``limit`` valid rows. Both wrappers raise on a capacity that is not
-    a power of two (``bucket_capacity`` gives none)."""
+    ``limit`` valid rows. A capacity that is not a power of two, or one
+    past the kernel's rows, passes the filtered batch through instead:
+    the final stage's host sort and limit (``exec/fragment.py``) order
+    it, as in the reference."""
     pred = _compile_pred(m.preds)
     sort_keys, limit, tiling = list(m.sort_keys), m.limit, m.tiling
+    cap = tiling.resident_rows
     leaf_id = "in0"
 
     def fn(blocks):
         cols, mask = blocks[leaf_id]
         m2 = mask if pred is None else mask & pred(cols)
+        n = int(mask.shape[0])
+        if not _is_pow2(n) or n > cap:
+            return cols, m2
         return kops.fused_topk(cols, m2, sort_keys=sort_keys, limit=limit,
                                tiling=tiling)
     return Lowered(fn, [(leaf_id, m.leaf)], m.kernel, m.tiling)

@@ -29,7 +29,8 @@ import ctypes
 
 import torch
 
-from repro_torch.analysis.roofline import JOIN_MAX_BUILD_ROWS, THREADS
+from repro_torch.analysis.roofline import (JOIN_MAX_BUILD_ROWS,
+                                           JOIN_MAX_PROBE_ROWS, THREADS)
 from repro_torch.kernels import ext
 from repro_torch.kernels.common import ACC_DTYPE, KEY_DTYPE
 from repro_torch.kernels.filter_agg import fused_filter_agg_plain
@@ -94,7 +95,7 @@ def fused_join_probe_agg_cuda(probe_cols: dict, probe_mask, sorted_keys,
     code, consts, slots, fns = prog.device_arrays(dev)
     A, K = prog.n_aggs, prog.n_groups
     n = int(probe_mask.shape[0])
-    if n >= 2**31 or tiling.block_rows != THREADS:
+    if n >= JOIN_MAX_PROBE_ROWS or tiling.block_rows != THREADS:
         raise ValueError(f"{n} probe rows in blocks of {tiling.block_rows}: "
                          f"the kernel takes fewer than 2^31 rows in blocks "
                          f"of {THREADS}")
