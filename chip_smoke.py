@@ -64,9 +64,19 @@ own full forward, timed beside the bytes a decode step reads and the
 operations prefill does; then the card against the port on the CPU on
 one set of parameters: granite-3-2b at its published widths cut to 2
 layers, mamba2-130m whole, and each of the ten architectures' reduced
-configs. Exits nonzero on any failure. The last three lines are JSON:
-the model phase, the kernel table, then
-``{"ok": true, "device": ...}``. """
+configs. Then the training half (``train_phase``, float32, TF32 off,
+launch counts reset around it; none may launch): granite-3-2b whole
+through the trainer's own step (``launch/train.make_trainer``, remat
+on) for three steps of 8 × 128 tokens, timed beside its 6·N·D and AdamW
+bound, with its peak memory and a warm step's device busy time, after
+holding its gradients with remat against without and two microbatches
+against one; one train step on the card against the CPU port (granite-
+3-2b and mamba2-130m at their published widths cut to 2 layers, and
+the ten reduced configs); and ``launch/train.run_training`` at
+mamba2-130m whole failing after its step-1 checkpoint and resumed from
+it, with the checkpoint's save and restore MB/s. Exits nonzero on any
+failure. The last four lines are JSON: the model phase, the train
+phase, the kernel table, then ``{"ok": true, "device": ...}``. """
 
 from __future__ import annotations
 
@@ -213,7 +223,9 @@ def main() -> int:
             s.close()
     del state, flush
     model = model_phase(torch, ext, dev, smi[0])
+    train = train_phase(torch, ext, dev, smi[0])
     log(json.dumps({"model": model}))
+    log(json.dumps({"train": train}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2354,13 +2366,15 @@ def _timed(torch, fn):
     return out, start.elapsed_time(end)
 
 
-def _device_busy(torch, fn, reps=3):
-    """(device ms, kernel launches, the three longest kernels) per call
+def _device_busy(torch, fn, reps=3, warm=True, top=3):
+    """(device ms, kernel launches, the ``top`` longest kernels) per call
     of ``fn``: every CUDA kernel, copy and fill the profiler records over
-    ``reps`` calls (torch.profiler; elementwise kernels included)."""
+    ``reps`` calls (torch.profiler; elementwise kernels included), after
+    one unprofiled call unless ``warm`` is false."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    fn()
+    if warm:
+        fn()
     _sync(torch)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -2376,7 +2390,7 @@ def _device_busy(torch, fn, reps=3):
             us = getattr(ev, "self_cuda_time_total", 0)
         rows.append((us / 1e3 / reps, ev.count / reps, ev.key[:60]))
     rows.sort(reverse=True)
-    return (sum(r[0] for r in rows), sum(r[1] for r in rows), rows[:3])
+    return (sum(r[0] for r in rows), sum(r[1] for r in rows), rows[:top])
 
 
 def _serve_run(torch, cfg, params, tokens, frames, S, steps):
@@ -2414,8 +2428,8 @@ class _LayerFeed:
     def __enter__(self):
         from repro_torch.models import decode, model
         self._saved = (model._layer_loop, decode._loop)
-        model._layer_loop = lambda fn, x, stacked, n: self._loop(
-            fn, x, stacked, n, has_cache=False)[0]
+        model._layer_loop = lambda fn, x, stacked, n, remat=False: \
+            self._loop(fn, x, stacked, n, has_cache=False)[0]
         decode._loop = self._loop
         return self
 
@@ -2685,6 +2699,495 @@ def model_phase(torch, ext, dev, smi):
     log(f"model phase: {time.perf_counter() - t_phase:.1f} s")
     return {"card": smi, "serve": a, "card_vs_cpu": b, "families": c,
             "launches": launches, "tf32": False}
+
+
+# -- train phase: the training half of the model stack ------------------------
+
+TRAIN_ARCH = "granite-3-2b"
+TRAIN_SHAPE = dict(batch=8, seq=128)   # the reference CLI's defaults
+TRAIN_STEPS = 3
+WARM_EXTRA = 3            # more warm steps timed after the three
+TRAIN_LOSS_REL = 1e-6     # first step's loss against a no-grad forward
+TRAIN_SELF_REL = 1e-5     # remat on / off, accum 2 / 1: of a leaf's max |g|
+TRAIN_REL = 1e-5          # loss and grad_norm, card against the CPU port
+GRAD_REL = 1e-4           # each gradient leaf, of its max |CPU value|
+CKPT_ARCH = "mamba2-130m"
+CMP_SHAPE = dict(batch=2, seq=64)      # (b): the CPU side runs these
+ADAMW_BYTES_PER_PARAM = 7 * 4          # read p, g, m, v; write p, m, v
+
+
+def _leafwise(torch, got, want, names, ctx, rel):
+    """The largest of each leaf's max |got - want| / max |want|; fails
+    above ``rel``."""
+    return max(_rel_err(g, w, f"{ctx} {n}", rel)
+               for g, w, n in zip(got, want, names))
+
+
+def _step_halves(torch, cfg, params, batch, opt):
+    """One train step as ``make_train_step`` composes it, in its two
+    halves so that the gradients can be kept: ``make_grad_fn``'s loss and
+    gradients (float32, remat on), then the optimizer's in-place update
+    from a fresh state. Returns (loss, grad_norm, gradients on the
+    CPU)."""
+    from repro_torch.models.steps import make_grad_fn
+    loss, grads = make_grad_fn(cfg, compute_dtype=torch.float32)(params,
+                                                                 batch)
+    kept = [g.detach().cpu().clone() for g in grads]
+    _, _, gnorm = opt.update_flat(grads, opt.init(params), params)
+    return float(loss), float(gnorm), kept
+
+
+def _layer_vjps(torch, cfg, params, batch):
+    """The backward pass cut at the layers, on the CPU (the model's
+    ``_layer_loop`` wrapped, remat off): each layer's input and the
+    loss's gradient at its output, and the last layer's output. Returns
+    ``(records, x_last)``."""
+    from repro_torch.models import model
+    from repro_torch.models.steps import make_grad_fn
+    records, last = [], []
+    real = model._layer_loop
+
+    def loop(fn, x, stacked, n, remat=False):
+        for i in range(n):
+            rec = {"x": x.detach()}
+            x, _ = fn(x, model.tree_index(stacked, i))
+            x.register_hook(lambda g, r=rec: r.__setitem__("dy",
+                                                           g.detach()))
+            records.append(rec)
+        last.append(x.detach())
+        return x
+    model._layer_loop = loop
+    try:
+        make_grad_fn(cfg, remat=False, compute_dtype=torch.float32)(
+            params, batch)
+    finally:
+        model._layer_loop = real
+    return records, last[0]
+
+
+def _forced_grads(torch, d, cfg, params, batch, records, x_last):
+    """Each layer's VJP (its input's and its parameters' gradients) from
+    the recorded input and output gradient, and the head's (final norm,
+    logits, loss) from the recorded last output, on device ``d``: the
+    gradients of the train step, each from the same inputs on both
+    devices. Returns ``(names, tensors on the CPU)``."""
+    from repro_torch.models import layers, model
+    from repro_torch.models.steps import softmax_xent
+    block = model.make_block_fn(cfg, causal=True)
+    names, out = [], []
+
+    def grads(y, leaves, gy=None):
+        gs = torch.autograd.grad(y, leaves, grad_outputs=gy,
+                                 allow_unused=True)
+        return [torch.zeros_like(t) if g is None else g
+                for t, g in zip(leaves, gs)]
+    for i, rec in enumerate(records):
+        x = rec["x"].to(d).requires_grad_(True)
+        p = {k: v[i].detach().to(d).requires_grad_(True)
+             for k, v in params["blocks"].items()}
+        keys = sorted(p)
+        y, _ = block(x, p)
+        for k, g in zip(["x"] + keys, grads(y, [x] + [p[k] for k in keys],
+                                            rec["dy"].to(d))):
+            names.append(f"layer {i} {k}")
+            out.append(g.cpu())
+    head = {k: v.detach().to(d).requires_grad_(True)
+            for k, v in params.items() if k != "blocks"}
+    x = x_last.to(d).requires_grad_(True)
+    h = layers.rms_norm(x, head["final_norm"], cfg.norm_eps)
+    loss = softmax_xent(model.lm_logits(cfg, head, h, torch.float32),
+                        batch["labels"].to(d))
+    keys = sorted(head)
+    for k, g in zip(["x"] + keys, grads(loss, [x] + [head[k]
+                                                     for k in keys])):
+        names.append(f"head {k}")
+        out.append(g.cpu())
+    return names, out
+
+
+def _train_card_against_cpu(torch, dev, cfg, label, *, batch, seq, seed=0,
+                            forced=False):
+    """One train step from one set of parameters (drawn on the CPU from
+    ``seed``) and ``synthetic_batch(cfg, 0, ...)`` on the CPU port and on
+    the card: loss and grad_norm within TRAIN_REL relative, every
+    gradient leaf within GRAD_REL of its max |CPU value|. ``forced``:
+    the gradient leaves and grad_norm are logged, not held, beside the
+    CPU's own spread when its embeddings move by 1e-7; what is held is
+    each layer's VJP and the head's, each from the CPU's recorded inputs
+    to it (:func:`_forced_grads`), and the norm of their parameters'
+    part, as ``model_phase`` holds a deep model's forward layer by
+    layer."""
+    from repro_torch.launch.train import make_trainer, synthetic_batch
+    from repro_torch.models.model import init_params
+    from repro_torch.tree import flatten_with_names, tree_map
+    params = init_params(cfg, torch.Generator().manual_seed(seed))
+    names = [n for n, _ in flatten_with_names(params)]
+    opt, _ = make_trainer(cfg, steps=TRAIN_STEPS)
+    runs, secs = {}, {}
+    for where in ("cpu", "card"):
+        d = torch.device("cpu") if where == "cpu" else dev
+        p = tree_map(lambda t: t.to(d, copy=True), params)
+        t0 = time.perf_counter()
+        runs[where] = _step_halves(
+            torch, cfg, p, synthetic_batch(cfg, 0, batch, seq, d), opt)
+        _sync(torch)
+        secs[where] = time.perf_counter() - t0
+        del p
+    (lc, nc, gc), (lg, ng, gg) = runs["cpu"], runs["card"]
+    out = {"loss_rel_err": abs(lg - lc) / abs(lc),
+           "grad_norm_rel_err": abs(ng - nc) / abs(nc),
+           "leaves": len(names), "loss": lc, "grad_norm": nc,
+           "forced": forced}
+    if forced:
+        def spread(got, norm):
+            return (max(float((g - w).abs().max()) / float(w.abs().max())
+                        for g, w in zip(got, gc)
+                        if float(w.abs().max()) > 0),
+                    abs(norm - nc) / abs(nc))
+        # free running, for the record: the card against the CPU, and the
+        # CPU against itself with the embeddings moved by 1e-7 relative
+        out["free_running_grad_rel_err"], out[
+            "free_running_grad_norm_rel_err"] = spread(gg, ng)
+        moved = tree_map(lambda t: t.clone(), params)
+        moved["embed"].mul_(1 + 1e-7 * torch.randn(
+            moved["embed"].shape, generator=torch.Generator().manual_seed(1)))
+        _, mn, mg = _step_halves(torch, cfg, moved, synthetic_batch(
+            cfg, 0, batch, seq, "cpu"), opt)
+        out["cpu_moved_1e-7_grad_rel_err"], out[
+            "cpu_moved_1e-7_grad_norm_rel_err"] = spread(mg, mn)
+        b = synthetic_batch(cfg, 0, batch, seq, "cpu")
+        records, x_last = _layer_vjps(torch, cfg, params, b)
+        vn, want = _forced_grads(torch, torch.device("cpu"), cfg, params,
+                                 b, records, x_last)
+        _, got = _forced_grads(torch, dev, cfg, params, b, records, x_last)
+        out["grad_max_rel_err"] = _leafwise(torch, got, want, vn,
+                                            f"train {label} VJP", GRAD_REL)
+        out["vjps"] = len(vn)
+
+        def norm(ts):       # the parameters' VJPs, not the activations'
+            return float(torch.sqrt(sum(torch.sum(t.double() ** 2)
+                                        for n, t in zip(vn, ts)
+                                        if not n.endswith(" x"))))
+        out["grad_norm_rel_err"] = abs(norm(got) - norm(want)) / norm(want)
+        log(f"train {label}: {len(vn)} VJP tensors, each layer's and the "
+            f"head's from the CPU's input to it, card = CPU within "
+            f"{out['grad_max_rel_err']:.3g} of max|CPU| (<= {GRAD_REL:g}), "
+            f"their parameters' norm {out['grad_norm_rel_err']:.3g} (<= "
+            f"{TRAIN_REL:g}); free running (not held): the gradient leaves"
+            f" {out['free_running_grad_rel_err']:.3g}, grad_norm "
+            f"{out['free_running_grad_norm_rel_err']:.3g}, the CPU against "
+            f"itself with the embeddings moved by 1e-7: "
+            f"{out['cpu_moved_1e-7_grad_rel_err']:.3g}, "
+            f"{out['cpu_moved_1e-7_grad_norm_rel_err']:.3g}")
+    else:
+        out["grad_max_rel_err"] = _leafwise(torch, gg, gc, names,
+                                            f"train {label} grad",
+                                            GRAD_REL)
+    for key in ("loss_rel_err", "grad_norm_rel_err"):
+        if not out[key] <= TRAIN_REL:
+            raise AssertionError(f"train {label}: {key} {out[key]:.3g} > "
+                                 f"{TRAIN_REL:g}")
+    log(f"train {label}: card = CPU port, loss {lg:.6f} / {lc:.6f} "
+        f"({out['loss_rel_err']:.3g}), grad_norm {ng:.6g} / {nc:.6g} "
+        f"({out['grad_norm_rel_err']:.3g}{', held on the VJPs' * forced}),"
+        f" {out.get('vjps', len(names))} "
+        f"{'VJP tensors' if forced else 'gradient leaves'} "
+        f"max|err|/max|CPU| {out['grad_max_rel_err']:.3g} <= {GRAD_REL:g};"
+        f" CPU {secs['cpu']:.2f} s, card {secs['card']:.2f} s")
+    return out
+
+
+def _train_full(torch, dev, smi, on_card):
+    """(a): granite-3-2b whole, the trainer's own step (``make_trainer``,
+    as ``run_training`` builds it), three steps of ``synthetic_batch``
+    batches at batch 8 × 128 after the gradient checks, then WARM_EXTRA
+    more timed steps (the warm time is the median of all but the first)
+    and one under the profiler."""
+    import gc
+    import statistics
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import make_trainer, synthetic_batch
+    from repro_torch.models.model import forward, init_params
+    from repro_torch.models.steps import make_grad_fn, softmax_xent
+    from repro_torch.tree import flatten_with_names
+    f32 = dict(compute_dtype=torch.float32)
+    cfg = get_config(TRAIN_ARCH)
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+
+    def peak():
+        return (torch.cuda.max_memory_allocated(dev) - base) if on_card \
+            else 0
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    names = [n for n, _ in flatten_with_names(params)]
+    n_all = _numel(params)
+    batches = [synthetic_batch(cfg, s, device=dev, **TRAIN_SHAPE)
+               for s in range(TRAIN_STEPS + WARM_EXTRA + 1)]
+    b0 = batches[0]
+    with torch.no_grad():
+        want = float(softmax_xent(forward(cfg, params, b0["tokens"], **f32),
+                                  b0["labels"]))
+    # before the optimizer state exists: remat on against off, and two
+    # microbatches against one
+    checks, grad_ms, grad_peak = {}, {}, {}
+    (l_on, g_on), grad_ms["remat"] = _timed(
+        torch, lambda: make_grad_fn(cfg, remat=True, **f32)(params, b0))
+    grad_peak["remat"] = peak()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    (l_off, g_off), grad_ms["no_remat"] = _timed(
+        torch, lambda: make_grad_fn(cfg, remat=False, **f32)(params, b0))
+    grad_peak["no_remat"] = peak()
+    checks["remat_vs_off"] = _leafwise(torch, g_off, g_on, names,
+                                       "train (a) remat off", TRAIN_SELF_REL)
+    del g_off
+    (l_acc, g_acc), grad_ms["accum2"] = _timed(
+        torch, lambda: make_grad_fn(cfg, accum_steps=2, **f32)(params, b0))
+    checks["accum2_vs_1"] = _leafwise(torch, g_acc, g_on, names,
+                                      "train (a) accum_steps=2",
+                                      TRAIN_SELF_REL)
+    del g_acc, g_on
+    checks["loss_remat_vs_off"] = abs(float(l_on) - float(l_off)) / abs(want)
+    checks["loss_accum2_vs_1"] = abs(float(l_acc) - float(l_on)) / abs(want)
+    for key in ("loss_remat_vs_off", "loss_accum2_vs_1"):
+        if not checks[key] <= TRAIN_SELF_REL:
+            raise AssertionError(f"train (a) {key} {checks[key]:.3g}")
+    # the trainer's three steps
+    opt, step_fn = make_trainer(cfg, steps=TRAIN_STEPS)
+    opt_state = opt.init(params)
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    def allocs():
+        st = torch.cuda.memory_stats(dev) if on_card else {}
+        return [st.get(k, 0) for k in ("num_alloc_retries",
+                                       "num_device_alloc",
+                                       "num_device_free")]
+    # the host's garbage collector, timed through its callbacks: a step
+    # that builds and frees an autograd graph of about 13,000 nodes
+    gc_log = []
+
+    def on_gc(phase, info):
+        if phase == "start":
+            gc_log.append([info["generation"], time.perf_counter()])
+        elif gc_log:
+            gc_log[-1][1] = time.perf_counter() - gc_log[-1][1]
+    losses, norms, step_ms, step_allocs, step_gc = [], [], [], [], []
+    gc.callbacks.append(on_gc)
+    try:
+        for i in range(TRAIN_STEPS + WARM_EXTRA):
+            before = allocs()
+            gc_log.clear()
+            (params, opt_state, m), ms = _timed(
+                torch, lambda b=batches[i]: step_fn(params, opt_state, b))
+            step_allocs.append([x - y for x, y in zip(allocs(), before)])
+            step_gc.append([sum(1 for g, _ in gc_log if g == 2),
+                            1e3 * sum(t for _, t in gc_log)])
+            if i < TRAIN_STEPS:
+                losses.append(float(m["loss"]))
+                norms.append(float(m["grad_norm"]))
+            step_ms.append(ms)
+    finally:
+        gc.callbacks.remove(on_gc)
+    step_peak = peak()
+    checks["first_loss_vs_forward"] = abs(losses[0] - want) / abs(want)
+    if not checks["first_loss_vs_forward"] <= TRAIN_LOSS_REL:
+        raise AssertionError(
+            f"train (a): first step's loss {losses[0]!r} against the "
+            f"no-grad forward's {want!r}: "
+            f"{checks['first_loss_vs_forward']:.3g} > {TRAIN_LOSS_REL:g}")
+    if not all(map(lambda v: v == v and abs(v) < 1e30, losses + norms)):
+        raise AssertionError(f"train (a): losses {losses}, norms {norms}")
+    warm = statistics.median(step_ms[1:])
+    busy = {}
+    if on_card:
+        # a fourth step under the profiler: the device's share of a warm
+        # step against the warm steps' median wall
+        dev_ms, kernels, top = _device_busy(
+            torch, lambda: step_fn(params, opt_state, batches[-1]),
+            reps=1, warm=False, top=5)
+        busy = {"device_ms": dev_ms, "launches": kernels,
+                "idle_share": 1.0 - dev_ms / warm,
+                "top": [[k, ms, n] for ms, n, k in top]}
+        log(f"train (a) warm step: device busy {dev_ms:.3f} ms of "
+            f"{warm:.3f} ms ({kernels:g} launches, idle share "
+            f"{busy['idle_share']:.3f}); longest: "
+            + "; ".join(f"{k} {ms:.3f} ms x{n:g}" for ms, n, k in top))
+    tokens = TRAIN_SHAPE["batch"] * TRAIN_SHAPE["seq"]
+    flops_ms = 1e3 * 6 * n_all * tokens / FP32_FLOPS
+    adamw_ms = 1e3 * ADAMW_BYTES_PER_PARAM * n_all / HBM_BYTES_PER_S
+    a = {"arch": TRAIN_ARCH, "layers": cfg.n_layers, "d_model": cfg.d_model,
+         **TRAIN_SHAPE, "params": n_all, "remat": True, "steps": TRAIN_STEPS,
+         "losses": losses, "grad_norms": norms, "step_ms": step_ms,
+         "step_alloc_retries_mallocs_frees": step_allocs,
+         "step_gc_gen2_collections_and_ms": step_gc,
+         "warm_step_ms": warm, "bound_ms": flops_ms + adamw_ms,
+         "bound_flops_ms": flops_ms, "bound_adamw_ms": adamw_ms,
+         "grad_ms": grad_ms, "grad_peak_bytes": grad_peak,
+         "peak_mem_bytes": step_peak, "checks": checks,
+         "device_busy": busy}
+    log(f"train (a) {TRAIN_ARCH} full ({cfg.n_layers} layers, d "
+        f"{cfg.d_model}, {n_all / 1e9:.3f} B parameters) on {smi}, batch "
+        f"{TRAIN_SHAPE['batch']} x {TRAIN_SHAPE['seq']}, float32, remat: "
+        f"steps {', '.join(f'{ms:.3f}' for ms in step_ms)} ms (allocator "
+        f"retries / cudaMalloc / cudaFree a step {step_allocs}; "
+        f"generation-2 collections and all collection ms a step "
+        f"{[[n, round(t, 1)] for n, t in step_gc]}; warm "
+        f"{warm:.3f} ms, the median of steps 2-{len(step_ms)}; bound "
+        f"{flops_ms + adamw_ms:.1f} ms = 6ND "
+        f"{flops_ms:.1f} + AdamW {adamw_ms:.1f}); losses "
+        f"{', '.join(f'{v:.6f}' for v in losses)}; peak memory "
+        f"{step_peak / 1e9:.2f} GB over the steps (gradients alone: remat "
+        f"{grad_peak['remat'] / 1e9:.2f} GB, without "
+        f"{grad_peak['no_remat'] / 1e9:.2f} GB; grad ms remat "
+        f"{grad_ms['remat']:.1f}, without {grad_ms['no_remat']:.1f}, "
+        f"accum 2 {grad_ms['accum2']:.1f}); first loss against the no-grad "
+        f"forward {checks['first_loss_vs_forward']:.3g} (<= "
+        f"{TRAIN_LOSS_REL:g}); gradients remat / off "
+        f"{checks['remat_vs_off']:.3g}, accum 2 / 1 "
+        f"{checks['accum2_vs_1']:.3g} of each leaf's max (<= "
+        f"{TRAIN_SELF_REL:g})")
+    return a
+
+
+def _train_checkpoints(torch, dev):
+    """(d): ``run_training`` at mamba2-130m whole: two steps a stage of
+    one, failing at step 1 after the step-1 checkpoint, then resumed to
+    step 2 on the same store; the step-2 checkpoint equals the resumed
+    run's parameters bit for bit. Then the same drive at a reduced
+    config against an uninterrupted run: the losses agree."""
+    from repro_torch.checkpoint import latest_step, load_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.launch.specs import params_specs
+    from repro_torch.launch.train import run_training
+    from repro_torch.optim import AdamW
+    from repro_torch.storage import ObjectStore, compression
+    from repro_torch.tree import leaves
+    run = dict(arch=CKPT_ARCH, reduced=False, steps=2, stage_steps=1,
+               device=dev, **TRAIN_SHAPE)
+    store, timings = ObjectStore(tier="local"), {}
+    t0 = time.perf_counter()
+    try:
+        run_training(store=store, run="smoke", fail_at_step=1,
+                     timings=timings, **run)
+    except RuntimeError as e:
+        if "injected failure at step 1" not in str(e):
+            raise
+    else:
+        raise AssertionError("train (d): the injected failure did not hit")
+    if latest_step(store, "smoke") != 1:
+        raise AssertionError("train (d): no step-1 checkpoint")
+    losses, params = run_training(store=store, run="smoke",
+                                  timings=timings, **run)
+    if latest_step(store, "smoke") != 2 or len(losses) != 1 \
+            or not abs(losses[0]) < float("inf"):
+        raise AssertionError(f"train (d): resumed {losses}")
+    cfg = get_config(CKPT_ARCH)
+    template = {"params": params_specs(cfg)}
+    template["opt"] = AdamW().init(template["params"])
+    back, step = load_checkpoint(store, "smoke", template, step=2,
+                                 device=dev)
+    same = all(torch.equal(a, b) for a, b in zip(leaves(back["params"]),
+                                                 leaves(params)))
+    if step != 2 or not same:
+        raise AssertionError("train (d): the step-2 checkpoint is not the "
+                             "resumed run's parameters")
+    stored = sum(len(store.get(k).data) for k in store.list("ckpt/smoke/"
+                                                            "step00000002/"))
+    d = {"arch": CKPT_ARCH, **TRAIN_SHAPE, "codec":
+         compression.DEFAULT_CODEC, "resumed_loss": losses[0],
+         "stored_bytes_step2": stored, "seconds": time.perf_counter() - t0}
+    for what in ("save", "restore"):
+        rows = timings[what]
+        d[what] = [{"s": r["s"], "bytes": r["bytes"],
+                    "mb_per_s": r["bytes"] / r["s"] / 1e6} for r in rows]
+    log(f"train (d) {CKPT_ARCH} whole through run_training ({d['codec']}):"
+        f" failed at step 1, resumed from the step-1 checkpoint, step-2 "
+        f"checkpoint = the resumed parameters bit for bit; saves "
+        + ", ".join(f"{r['s']:.2f} s ({r['mb_per_s']:.1f} MB/s)"
+                    for r in d["save"])
+        + "; restore " + ", ".join(f"{r['s']:.2f} s ({r['mb_per_s']:.1f} "
+                                  f"MB/s)" for r in d["restore"])
+        + f" of {d['save'][0]['bytes'] / 1e9:.3f} GB (stored "
+        f"{stored / 1e9:.3f} GB); {d['seconds']:.1f} s")
+    # the same fail-and-resume at a reduced config, against a whole run
+    small = dict(arch="hymba-1.5b", reduced=True, steps=4, stage_steps=2,
+                 batch=4, seq=32, device=dev, verbose=False)
+    whole, _ = run_training(store=ObjectStore(tier="local"), **small)
+    s2 = ObjectStore(tier="local")
+    try:
+        run_training(store=s2, fail_at_step=2, **small)
+    except RuntimeError:
+        pass
+    rest, _ = run_training(store=s2, **small)
+    err = max(abs(a - b) / abs(b) for a, b in zip(rest, whole[2:]))
+    if len(rest) != 2 or not err <= TRAIN_LOSS_REL:
+        raise AssertionError(f"train (d) reduced: resumed {rest} against "
+                             f"{whole}")
+    d["reduced_resume_rel_err"] = err
+    log(f"train (d) hymba-1.5b reduced: fail at step 2 and resume = the "
+        f"uninterrupted run's losses within {err:.3g} (<= "
+        f"{TRAIN_LOSS_REL:g})")
+    return d
+
+
+def train_phase(torch, ext, dev, smi):
+    """The model stack's training half on the card, in float32 with TF32
+    off, the launch counts reset just before and read just after (the
+    reference's training path calls no Pallas kernel, so none may
+    launch): (a) granite-3-2b whole: the trainer's step (``launch/
+    train.make_trainer``, remat on) over three batches of 8 × 128, timed
+    by CUDA events beside its bound, peak memory, a fourth step's device
+    busy time and idle share, after holding the gradients with remat
+    against without and two microbatches against one, and the first
+    loss against a no-grad forward; (b) the card against the CPU port on
+    one train step: granite-3-2b and mamba2-130m at their published
+    widths cut to 2 layers; (c) the ten reduced configs likewise; (d)
+    ``launch/train.run_training`` at mamba2-130m whole, failing after
+    its step-1 checkpoint and resumed to step 2 (save and restore
+    seconds and MB/s), and a reduced fail-and-resume against an
+    uninterrupted run."""
+    import dataclasses
+    from repro_torch.configs import ARCHS, get_config, get_reduced
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.empty(0, device=dev)
+        torch.cuda.empty_cache()
+    ext.reset_launches()                     # the train path starts here
+    a = _train_full(torch, dev, smi, on_card)
+    if on_card:
+        torch.cuda.empty_cache()
+    # mamba2's random layers amplify a 1e-7 change of the embeddings to
+    # 1e-4 of its largest gradients in two layers (PERF.md §6, PR 22):
+    # held layer by layer
+    b = {f"{arch} x2 layers": _train_card_against_cpu(
+            torch, dev, dataclasses.replace(get_config(arch), n_layers=2),
+            f"(b) {arch} (2 layers)", forced=arch == CKPT_ARCH,
+            **CMP_SHAPE)
+         for arch in (TRAIN_ARCH, CKPT_ARCH)}
+    c = {arch: _train_card_against_cpu(torch, dev, get_reduced(arch),
+                                       f"(c) {arch} reduced", batch=4,
+                                       seq=32)
+         for arch in ARCHS}
+    d = _train_checkpoints(torch, dev)
+    _sync(torch)
+    launches = ext.launches()                # ... and ends here
+    log(f"launches on the train path: {launches or 'none'} (the "
+        f"reference's training path calls no kernel)")
+    if launches:
+        raise AssertionError(f"train path launched kernels: {launches}")
+    seconds = time.perf_counter() - t_phase
+    log(f"train phase: {seconds:.1f} s")
+    return {"card": smi, "full": a, "card_vs_cpu": b, "families": c,
+            "checkpoint": d, "launches": launches, "tf32": False,
+            "seconds": seconds}
+
 
 if __name__ == "__main__":
     sys.exit(main())

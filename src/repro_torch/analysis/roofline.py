@@ -59,6 +59,7 @@ H100_SXM = {
     "smem_per_sm": 233_472,         # 228 KB
     "threads_per_sm": 2048,
     "hbm_bandwidth": 3.35e12,       # bytes/s
+    "hbm_bytes": 80e9,              # HBM3 capacity
     "peak_fp64_flops": 34e12,       # CUDA-core FP64 (no tensor cores)
 }
 
@@ -233,3 +234,13 @@ def onehot_group_capacity(n_aggs: int = 4) -> int:
     reference's VMEM-derived cap (4096 there; 4096 here at A = 4)."""
     lane = (n_aggs + 1) * _ACC_BYTES
     return _pow2_floor(max(smem_budget_bytes() // lane, 1))
+
+
+def model_flops(cfg, shape, *, train: bool) -> float:
+    """6·N·D (dense) / 6·N_active·D (MoE) global step FLOPs; 2·N·D for
+    forward-only kinds (the reference's ``roofline.model_flops``)."""
+    n = cfg.active_param_count()
+    tokens = shape.global_batch * (shape.seq_len if shape.kind != "decode"
+                                   else 1)
+    mult = 6 if train else 2
+    return mult * n * tokens

@@ -14,11 +14,13 @@ import torch
 
 
 def tensor_from_numpy(a, device=None) -> torch.Tensor:
-    a = np.asarray(a)
+    # a C-ordered copy that keeps a 0-d array 0-d (``ascontiguousarray``
+    # would make it 1-d)
+    a = np.array(a, order="C", copy=True)
     if a.dtype.name == "bfloat16":
-        t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy())
+        t = torch.from_numpy(a.view(np.uint16))
         return t.view(torch.bfloat16).to(device)
-    return torch.from_numpy(np.ascontiguousarray(a).copy()).to(device)
+    return torch.from_numpy(a).to(device)
 
 
 def params_from_numpy(tree, device=None):

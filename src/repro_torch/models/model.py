@@ -10,10 +10,15 @@ One parameter layout + three entry points per architecture:
   * ``decode_step``   — one new token against the cache (serving)
 
 Layers are stacked along a leading L axis; a Python loop over the stack
-takes the reference's ``lax.scan``. ``remat`` and ``scan_layers`` are
-accepted and change nothing here (the serving path keeps no activations
-for a backward pass). The reference shards along a device mesh; the port
-has none, so every ``mesh`` argument must be None.
+takes the reference's ``lax.scan`` (``scan_layers`` is accepted and
+changes nothing). ``remat`` takes the reference's ``jax.checkpoint`` of
+each block: every layer of the forward, the encoder and the decoder runs
+under ``torch.utils.checkpoint`` (non-reentrant), which keeps only the
+layer's input for the backward pass and recomputes the rest — but only
+when grad is enabled and some parameter of the stack requires grad, so
+serving (whose parameters require none) runs the plain loop. The
+reference shards along a device mesh; the port has none, so every
+``mesh`` argument must be None.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ import dataclasses
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
@@ -38,15 +44,56 @@ def tree_index(tree, i: int):
     return tree[i]
 
 
-def _layer_loop(layer_fn, x, stacked, n_layers: int):
-    for i in range(n_layers):
-        x, _ = layer_fn(x, tree_index(stacked, i))
+def _needs_grad(tree) -> bool:
+    if isinstance(tree, dict):
+        return any(_needs_grad(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return any(_needs_grad(v) for v in tree)
+    return isinstance(tree, torch.Tensor) and tree.requires_grad
+
+
+def tree_unbind(tree, n: int) -> list:
+    """The ``n`` layers of a stacked tree, each a tree of views. Under
+    autograd one ``unbind`` a tensor stacks the layers' gradients once in
+    the backward pass; indexing layer by layer (``tree_index``) would
+    materialise a zero-filled gradient of the whole stacked tensor for
+    every layer and add them up, 40 passes over 10 GB a step at
+    granite-3-2b."""
+    if isinstance(tree, dict):
+        parts = {k: tree_unbind(v, n) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in tree} for i in range(n)]
+    if isinstance(tree, (list, tuple)):
+        parts = [tree_unbind(v, n) for v in tree]
+        return [type(tree)(p[i] for p in parts) for i in range(n)]
+    return list(torch.unbind(tree, 0))
+
+
+def _layer_loop(layer_fn, x, stacked, n_layers: int, remat: bool = False):
+    """``x`` through the ``n_layers`` layers of ``stacked``; with
+    ``remat`` (and a backward pass to save for) each layer runs under
+    ``torch.utils.checkpoint``."""
+    if not (torch.is_grad_enabled() and _needs_grad(stacked)):
+        for i in range(n_layers):
+            x, _ = layer_fn(x, tree_index(stacked, i))
+        return x
+    layers = tree_unbind(stacked, n_layers)
+    if remat:
+        def layer(x, p):
+            return layer_fn(x, p)[0]
+        for p in layers:
+            x = checkpoint(layer, x, p, use_reentrant=False)
+        return x
+    for p in layers:
+        x, _ = layer_fn(x, p)
     return x
 
 
 # -- initialization -----------------------------------------------------------
 
-def _normal(gen: torch.Generator, shape, scale: float, dtype, device):
+def _normal(gen: torch.Generator | None, shape, scale: float, dtype,
+            device):
+    if gen is None:                 # a shape walk: no values to draw
+        return torch.empty(shape, dtype=dtype, device="meta")
     # scaled in place: a second float32 copy of the largest stacked
     # weight would add 2.7 GB to granite-3-2b's peak
     t = torch.randn(shape, generator=gen, dtype=torch.float32,
@@ -54,13 +101,23 @@ def _normal(gen: torch.Generator, shape, scale: float, dtype, device):
     return t.mul_(scale).to(dtype=dtype, device=device)
 
 
+def _device_of(gen: torch.Generator | None, device):
+    if gen is None:
+        if device is not None and torch.device(device).type != "meta":
+            raise ValueError("parameters without a generator are shapes "
+                             "only: device must be 'meta'")
+        return torch.device("meta")
+    return gen.device if device is None else device
+
+
 def init_block_params(cfg: ModelConfig, gen: torch.Generator,
                       dtype=torch.float32, device=None) -> dict:
     """Stacked per-layer parameters (leading axis = n_layers), drawn from
-    ``gen`` with the reference's shapes, dtypes and scales."""
+    ``gen`` with the reference's shapes, dtypes and scales (``gen`` None:
+    on the ``meta`` device, shapes and dtypes only)."""
     d, hd = cfg.d_model, cfg.head_dim_
     nl = cfg.n_layers
-    device = gen.device if device is None else device
+    device = _device_of(gen, device)
 
     def w(shape, scale=None):
         s = scale if scale is not None else (shape[-2] ** -0.5)
@@ -112,9 +169,11 @@ def init_params(cfg: ModelConfig, gen: torch.Generator,
     its own device; they are placed on ``device`` (default: the
     generator's). The draws are not the reference's (JAX and torch draw
     differently): a test that compares the two packages converts the
-    reference's parameters (``models/convert.py``) instead."""
+    reference's parameters (``models/convert.py``) instead. With ``gen``
+    None the tree is drawn on the ``meta`` device: the shapes and dtypes
+    of the parameters with no storage (``launch/specs.params_specs``)."""
     d = cfg.d_model
-    device = gen.device if device is None else device
+    device = _device_of(gen, device)
     params = {
         "embed": _normal(gen, (cfg.padded_vocab, d), 0.02, dtype, device),
         "blocks": init_block_params(cfg, gen, dtype, device),
@@ -285,10 +344,11 @@ def forward(cfg: ModelConfig, params, tokens, *, mesh=None,
     (B, enc_frames, D) are the stubbed modality-frontend embeddings."""
     L._no_mesh(mesh)
     if cfg.enc_dec:
-        return _whisper_forward(cfg, params, tokens, frames, compute_dtype)
+        return _whisper_forward(cfg, params, tokens, frames, compute_dtype,
+                                remat)
     x = params["embed"].to(compute_dtype)[tokens]
     x = _layer_loop(make_block_fn(cfg, causal=True), x, params["blocks"],
-                    cfg.n_layers)
+                    cfg.n_layers, remat)
     x = L.rms_norm(x, params["final_norm"].to(compute_dtype), cfg.norm_eps)
     return lm_logits(cfg, params, x, compute_dtype)
 
@@ -311,20 +371,22 @@ def lm_logits(cfg, params, x, compute_dtype, mesh=None):
 
 # -- whisper (enc-dec) --------------------------------------------------------
 
-def encode(cfg: ModelConfig, params, frames, compute_dtype):
+def encode(cfg: ModelConfig, params, frames, compute_dtype,
+           remat: bool = False):
     """The encoder stack over the stubbed frame embeddings."""
     enc = frames.to(compute_dtype) \
         + params["enc_pos"].to(compute_dtype)[None]
     enc_block = make_block_fn(
         dataclasses.replace(cfg, family="dense", enc_dec=False,
                             n_kv_heads=cfg.n_heads), causal=False)
-    enc = _layer_loop(enc_block, enc, params["enc_blocks"], cfg.enc_layers)
+    enc = _layer_loop(enc_block, enc, params["enc_blocks"], cfg.enc_layers,
+                      remat)
     return L.rms_norm(enc, params["enc_norm"].to(compute_dtype),
                       cfg.norm_eps)
 
 
-def _whisper_forward(cfg, params, tokens, frames, compute_dtype):
-    enc = encode(cfg, params, frames, compute_dtype)
+def _whisper_forward(cfg, params, tokens, frames, compute_dtype, remat):
+    enc = encode(cfg, params, frames, compute_dtype, remat)
     S = tokens.shape[1]
     x = params["embed"].to(compute_dtype)[tokens] \
         + params["dec_pos"].to(compute_dtype)[None, :S]
@@ -350,6 +412,6 @@ def _whisper_forward(cfg, params, tokens, frames, compute_dtype):
         x = x + ffn_sublayer(dec_cfg, p, h)
         return x, None
     x = _layer_loop(dec_block, x, (params["blocks"], params["cross"]),
-                    cfg.n_layers)
+                    cfg.n_layers, remat)
     x = L.rms_norm(x, params["final_norm"].to(compute_dtype), cfg.norm_eps)
     return lm_logits(cfg, params, x, compute_dtype)

@@ -9,6 +9,12 @@ the same function on the card), and inter-chunk terms propagate a
 (heads, state, head_dim) running state. The reference combines the chunk
 states with an associative scan (parallel over chunks); here an
 exclusive loop over the chunks does it. Work is O(S·Q + S·N·P).
+
+One difference: the intra-chunk decay masks before its exp, where the
+reference masks after it. The forward values are the same; the
+reference's gradient is NaN once a chunk's decay overflows float32 (a
+chunk of 128 tokens at mamba2-130m's published widths), the port's is
+finite (``tests/test_torch_train_mixer.py``).
 """
 
 from __future__ import annotations
@@ -53,10 +59,16 @@ def ssd_chunked(x, dt, A_log, B, C, *, chunk: int) -> torch.Tensor:
     cum = torch.cumsum(da, dim=2)                       # inclusive
     seg_total = cum[:, :, -1, :]                        # (b,c,H)
 
-    # intra-chunk (masked quadratic)
-    decay = torch.exp(cum[:, :, :, None, :] - cum[:, :, None, :, :])
+    # intra-chunk (masked quadratic). The mask goes inside the exp: above
+    # the diagonal cum_s - cum_t is the positive sum of |dt·a| over
+    # (s, t], whose exp overflows float32 once it passes about 88 (a
+    # chunk of 128 tokens at mamba2-130m's published widths), and the
+    # reference's where-after-exp then turns the backward pass's
+    # 0 · inf into NaN. The forward values are the same either way.
     causal = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
-    decay = torch.where(causal[None, None, :, :, None], decay, 0.0)
+    decay = torch.exp(torch.where(
+        causal[None, None, :, :, None],
+        cum[:, :, :, None, :] - cum[:, :, None, :, :], float("-inf")))
     cb = torch.einsum("bcsn,bctn->bcst", Cc.float(), Bc.float())
     w = cb[..., None] * decay * dtc[:, :, None, :, :]   # (b,c,s,t,H)
     y_intra = torch.einsum("bcsth,bcthp->bcshp", w, xc)

@@ -1,16 +1,22 @@
-"""Serving step builders shared by the entry points — the port of
-``repro.models.steps``: the loss (forward only), the prefill step and the
-serve step. The train step, and the optimiser it needs, are not ported
-yet, so this module imports no optimiser.
+"""Training and serving step builders shared by the entry points — the
+port of ``repro.models.steps``: the loss, the train step (gradients by
+``torch.autograd``, optional gradient accumulation, the AdamW update in
+place), the prefill step and the serve step.
 """
 
 from __future__ import annotations
+
+from typing import TYPE_CHECKING
 
 import torch
 
 from repro_torch.models import decode as decode_lib
 from repro_torch.models import model as model_lib
 from repro_torch.models.config import ModelConfig
+from repro_torch.tree import leaves
+
+if TYPE_CHECKING:       # the serving path loads no optimizer
+    from repro_torch.optim.adamw import AdamW
 
 
 def softmax_xent(logits, labels):
@@ -33,6 +39,82 @@ def make_loss_fn(cfg: ModelConfig, *, mesh=None, remat=True,
             scan_layers=scan_layers)
         return softmax_xent(logits, batch["labels"])
     return loss_fn
+
+
+def make_grad_fn(cfg: ModelConfig, *, mesh=None, remat=True,
+                 compute_dtype=torch.bfloat16, scan_layers=True,
+                 accum_steps: int = 1):
+    """``grad_fn(params, batch) -> (loss, grads)``: the loss, detached,
+    and its gradient with respect to every parameter leaf, a list in the
+    reference's leaf order (``repro_torch.tree``).
+
+    The parameters are marked as requiring grad for the call and
+    unmarked after it, so they stay leaf tensors that need no grad
+    outside it. ``accum_steps`` > 1 splits the batch along axis 0 into
+    that many microbatches, as the reference's reshape does, sums their
+    float32 gradients in microbatch order into one extra float32 buffer
+    a leaf, and divides the summed loss and gradients by
+    ``accum_steps``."""
+    loss_fn = make_loss_fn(cfg, mesh=mesh, remat=remat,
+                           compute_dtype=compute_dtype,
+                           scan_layers=scan_layers)
+
+    def value_and_grad(params, flat_p, batch):
+        loss = loss_fn(params, batch)
+        grads = torch.autograd.grad(loss, flat_p, allow_unused=True)
+        # a leaf the loss does not read (an SSM block's ``mlp_norm``) has
+        # a zero gradient, as JAX gives it
+        return loss.detach(), [torch.zeros_like(p) if g is None else g
+                               for p, g in zip(flat_p, grads)]
+
+    def grad_fn(params, batch):
+        flat_p = leaves(params)
+        for p in flat_p:
+            p.requires_grad_(True)
+        try:
+            if accum_steps == 1:
+                return value_and_grad(params, flat_p, batch)
+            micro = {k: v.reshape((accum_steps, v.shape[0] // accum_steps)
+                                  + tuple(v.shape[1:]))
+                     for k, v in batch.items()}
+            loss = torch.zeros((), dtype=torch.float32,
+                               device=flat_p[0].device)
+            grads = [torch.zeros(p.shape, dtype=torch.float32,
+                                 device=p.device) for p in flat_p]
+            for i in range(accum_steps):
+                l, g = value_and_grad(
+                    params, flat_p, {k: v[i] for k, v in micro.items()})
+                loss = loss + l
+                for acc, gi in zip(grads, g):
+                    acc.add_(gi.float())
+                del g
+            for g in grads:
+                g.div_(accum_steps)
+            return loss / accum_steps, grads
+        finally:
+            for p in flat_p:
+                p.requires_grad_(False)
+    return grad_fn
+
+
+def make_train_step(cfg: ModelConfig, optimizer: AdamW, *, mesh=None,
+                    remat=True, compute_dtype=torch.bfloat16,
+                    scan_layers=True, accum_steps: int = 1):
+    """``train_step(params, opt_state, batch) -> (params, opt_state,
+    {"loss", "grad_norm"})``: ``make_grad_fn``'s loss and gradients,
+    then ``optimizer``'s update, which writes the parameters and moments
+    in place and frees each gradient as it applies it
+    (``optim/adamw.py``)."""
+    grad_fn = make_grad_fn(cfg, mesh=mesh, remat=remat,
+                           compute_dtype=compute_dtype,
+                           scan_layers=scan_layers, accum_steps=accum_steps)
+
+    def train_step(params, opt_state, batch):
+        loss, grads = grad_fn(params, batch)
+        params, opt_state, gnorm = optimizer.update_flat(grads, opt_state,
+                                                         params)
+        return params, opt_state, {"loss": loss, "grad_norm": gnorm}
+    return train_step
 
 
 def make_prefill_step(cfg: ModelConfig, *, mesh=None,

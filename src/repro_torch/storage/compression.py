@@ -42,6 +42,13 @@ def decompress(data: bytes, codec: str, *, max_output_size: int) -> bytes:
             raise RuntimeError(
                 "object was written with zstd but zstandard is not "
                 "installed in this environment")
+        # a frame that records its content size is decompressed to that
+        # size whatever ``max_output_size`` says: refuse a larger one
+        # before it is allocated
+        declared = zstandard.frame_content_size(data)
+        if declared > cap:
+            raise ValueError(
+                f"zstd chunk declares {declared} bytes, past its cap {cap}")
         return zstandard.ZstdDecompressor().decompress(
             data, max_output_size=cap)
     if codec == "zlib":

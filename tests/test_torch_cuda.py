@@ -1140,3 +1140,129 @@ def test_model_serving_on_the_card_equals_the_cpu_port(arch):
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = tf32
+
+
+# -- the training half on the card
+
+def _tf32_off():
+    old = (torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return old
+
+
+def _copy(tree, device):
+    from repro_torch.tree import tree_map
+    return tree_map(lambda t: t.to(device, copy=True), tree)
+
+
+def _rel_close(got, want, rel, ctx):
+    scale = float(want.abs().max())
+    err = float((got.cpu() - want).abs().max())
+    assert err <= rel * max(scale, 1e-30), (ctx, err, scale)
+
+
+@pytest.mark.parametrize("arch", ["granite-3-2b", "granite-moe-1b-a400m"])
+def test_train_step_on_the_card_equals_the_cpu_port(arch):
+    """One train step of a reduced config on the card (float32, TF32 off)
+    against the port on the CPU from the same parameters and batch: loss
+    and grad_norm within 1e-5 relative, every gradient leaf within 1e-4
+    of its largest CPU value; no kernel launches on the path."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from repro_torch import tree
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch.train import make_trainer, synthetic_batch
+    from repro_torch.models.model import init_params
+    from repro_torch.models.steps import make_grad_fn
+    old = _tf32_off()
+    try:
+        cfg = get_reduced(arch)
+        card = torch.device("cuda", 0)
+        params = init_params(cfg, torch.Generator().manual_seed(0))
+        runs = {}
+        before = ext.launches()
+        for dev in (torch.device("cpu"), card):
+            batch = synthetic_batch(cfg, 0, 4, 32, dev)
+            loss, grads = make_grad_fn(cfg, compute_dtype=torch.float32)(
+                _copy(params, dev), batch)
+            opt, step = make_trainer(cfg, steps=5)
+            p = _copy(params, dev)           # the step updates in place
+            _, state, m = step(p, opt.init(p), batch)
+            runs[dev.type] = (float(loss), [g.cpu() for g in grads],
+                              float(m["loss"]), float(m["grad_norm"]))
+            assert int(state["step"]) == 1
+        assert ext.launches() == before
+        cpu, got = runs["cpu"], runs["cuda"]
+        for i in (0, 2, 3):
+            assert abs(got[i] - cpu[i]) <= 1e-5 * abs(cpu[i]), (arch, i)
+        names = [n for n, _ in tree.flatten_with_names(params)]
+        for name, g, w in zip(names, got[1], cpu[1]):
+            _rel_close(g, w, 1e-4, (arch, name))
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = old
+
+
+@pytest.mark.parametrize("state_dtype", [torch.float32, torch.bfloat16])
+def test_adamw_on_the_card_equals_the_cpu(state_dtype):
+    """Three AdamW updates on the card against the CPU, same gradients:
+    parameters and moments within 1e-6 of their largest CPU value."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from repro_torch import tree
+    from repro_torch.optim import AdamW, cosine_schedule
+    gen = torch.Generator().manual_seed(4)
+    params = {"w": torch.randn(64, 32, generator=gen),
+              "b": {"z": torch.randn(32, generator=gen)}}
+    grads = [{"w": torch.randn(64, 32, generator=gen) * 10 ** i,
+              "b": {"z": torch.randn(32, generator=gen)}} for i in range(3)]
+    opt = AdamW(lr=cosine_schedule(3e-3, 2, 5), weight_decay=0.01,
+                state_dtype=state_dtype)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = _copy(params, torch.device(dev))     # updated in place
+        s = opt.init(p)
+        for g in grads:
+            p, s, n = opt.update(_to(g, torch.device(dev)), s, p)
+        out[dev] = (p, s, float(n))
+    (pc, sc, nc), (pg, sg, ng) = out["cpu"], out["cuda"]
+    assert abs(ng - nc) <= 1e-6 * nc
+    assert int(sg["step"]) == 3 and sg["step"].dtype == torch.int32
+    for a, b in zip(tree.leaves([pg, sg["m"], sg["v"]]),
+                    tree.leaves([pc, sc["m"], sc["v"]])):
+        assert a.dtype == b.dtype and a.device.type == "cuda"
+        _rel_close(a.float(), b.float(), 1e-6, "adamw")
+
+
+def test_checkpoint_from_the_card_restores_onto_the_card():
+    """Card tensors (float32 parameters, bf16 moments, the int32 step)
+    saved and restored onto the card bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from repro_torch import tree
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch.specs import params_specs
+    from repro_torch.models.model import init_params
+    from repro_torch.optim import AdamW
+    from repro_torch.storage import ObjectStore
+    card = torch.device("cuda", 0)
+    cfg = get_reduced("hymba-1.5b")
+    params = init_params(cfg, torch.Generator(card).manual_seed(0))
+    opt = AdamW(state_dtype=torch.bfloat16)
+    state = opt.init(params)
+    for t in tree.leaves([state["m"], state["v"]]):
+        t.normal_()
+    state["step"] += 9
+    store = ObjectStore(tier="local")
+    save_checkpoint(store, "card", 9, {"params": params, "opt": state})
+    tmpl = {"params": params_specs(cfg)}
+    tmpl["opt"] = opt.init(tmpl["params"])
+    back, step = load_checkpoint(store, "card", tmpl, device=card)
+    assert step == 9
+    for a, b in zip(tree.leaves(back), tree.leaves({"params": params,
+                                                    "opt": state})):
+        assert a.device == card and a.dtype == b.dtype
+        assert torch.equal(a, b)

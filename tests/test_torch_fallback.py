@@ -88,7 +88,7 @@ def _assert_same_rows(got, want, ctx):
                                    **TOL)
 
 
-# -- one block at a capacity that is not a power of two --------------------------------
+# -- one block at a capacity that is not a power of two -----------------------
 
 SCAN = {"t": "scan_table", "columns": ["g", "i", "x", "y"]}
 SA_AGGS = [["s", "sum", {"t": "bin", "op": "*", "l": col("x"),
@@ -164,7 +164,7 @@ def test_topk_arm_passes_the_batch_through_off_a_power_of_two(no_wrappers):
         np.testing.assert_array_equal(got[c].numpy(), np.asarray(want[c]))
 
 
-# -- whole queries under a forced cap ---------------------------------------------------
+# -- whole queries under a forced cap -----------------------------------------
 
 @pytest.fixture(scope="module")
 def sessions():

@@ -15,6 +15,11 @@ import repro_torch
 SRC = Path(repro_torch.__file__).resolve().parent
 FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|repro)\b(?!_torch)", re.M)
 MSGPACK = re.compile(r"^\s*(import|from)\s+msgpack\b", re.M)
+# the training half of the model stack and the host tables
+NEW_MODULES = ("repro_torch.optim.adamw", "repro_torch.checkpoint.store",
+               "repro_torch.launch.train", "repro_torch.launch.specs",
+               "repro_torch.analysis.memtraffic",
+               "repro_torch.parallel.sharding", "repro_torch.tree")
 
 
 def _modules() -> list[str]:
@@ -28,6 +33,8 @@ def test_every_module_imports_without_jax_or_repro():
     assert "repro_torch.kernels.ops" in mods
     assert "repro_torch.service.service" in mods
     assert "repro_torch.launch.sql" in mods
+    for m in NEW_MODULES:
+        assert m in mods, m
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -41,7 +48,8 @@ def test_every_module_imports_without_jax_or_repro():
         "print('LOADED', bad)\n"
         "assert not bad, bad\n"
         "need = ('repro_torch.service.service', 'repro_torch.launch.sql')\n"
-        "print('IMPORTED', [m for m in need if m in sys.modules])\n")
+        "print('IMPORTED', [m for m in need if m in sys.modules])\n"
+        f"print('TRAINING', all(m in sys.modules for m in {NEW_MODULES!r}))\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=300,
                          env=dict(os.environ, PYTHONPATH=str(SRC.parent)))
@@ -49,6 +57,7 @@ def test_every_module_imports_without_jax_or_repro():
     assert "LOADED []" in res.stdout
     assert "IMPORTED ['repro_torch.service.service', " \
         "'repro_torch.launch.sql']" in res.stdout
+    assert "TRAINING True" in res.stdout
 
 
 def test_no_source_line_imports_jax_or_repro():
