@@ -39,7 +39,6 @@ from repro_torch.models.model import init_params
 from repro_torch.models.steps import make_train_step
 from repro_torch.optim import AdamW, cosine_schedule
 from repro_torch.storage import ObjectStore
-from repro_torch.tree import leaves
 
 
 def synthetic_batch(cfg, step: int, batch: int, seq: int, device=None):
@@ -71,14 +70,11 @@ def run_training(*, arch: str, reduced: bool, steps: int,
                  stage_steps: int, batch: int, seq: int,
                  store: ObjectStore | None = None, run: str | None = None,
                  lr: float = 3e-3, fail_at_step: int | None = None,
-                 verbose: bool = True, device=None,
-                 timings: dict | None = None):
+                 verbose: bool = True, device=None):
     """Train ``steps`` steps from the run's last stage checkpoint (or from
     step 0), writing one after every ``stage_steps``. Returns the losses
     of the steps it ran and the parameters. ``device``: the card unless
-    given (``exec.batch.resolve_device``; no card and no device raises).
-    ``timings``, where given, collects the seconds and bytes of each
-    save and restore."""
+    given (``exec.batch.resolve_device``; no card and no device raises)."""
     device = resolve_device(device)
     cfg = get_reduced(arch) if reduced else get_config(arch)
     store = store or ObjectStore(tier="local")
@@ -89,9 +85,7 @@ def run_training(*, arch: str, reduced: bool, steps: int,
     if start is not None:
         template = {"params": params_specs(cfg), "opt": None}
         template["opt"] = opt.init(template["params"])
-        t0 = time.perf_counter()
         state, start = load_checkpoint(store, run, template, device=device)
-        _log(timings, "restore", t0, state, device)
         params, opt_state = state["params"], state["opt"]
         if verbose:
             print(f"[train] resumed {run} from stage checkpoint "
@@ -111,25 +105,13 @@ def run_training(*, arch: str, reduced: bool, steps: int,
         if fail_at_step is not None and step == fail_at_step:
             raise RuntimeError(f"injected failure at step {step}")
         if (step + 1) % stage_steps == 0 or step + 1 == steps:
-            state = {"params": params, "opt": opt_state}
-            ts = time.perf_counter()
-            save_checkpoint(store, run, step + 1, state)
-            _log(timings, "save", ts, state, device)
+            save_checkpoint(store, run, step + 1,
+                            {"params": params, "opt": opt_state})
             if verbose:
                 rate = (step + 1 - start) / (time.perf_counter() - t0)
                 print(f"[train] stage complete @ step {step + 1} "
                       f"loss={losses[-1]:.4f} steps/s={rate:.2f}")
     return losses, params
-
-
-def _log(timings, what: str, t0: float, state, device) -> None:
-    if timings is None:
-        return
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    nbytes = sum(t.numel() * t.element_size() for t in leaves(state))
-    timings.setdefault(what, []).append(
-        {"s": time.perf_counter() - t0, "bytes": nbytes})
 
 
 def main(argv=None) -> None:

@@ -72,19 +72,13 @@ def _layer_loop(layer_fn, x, stacked, n_layers: int, remat: bool = False):
     """``x`` through the ``n_layers`` layers of ``stacked``; with
     ``remat`` (and a backward pass to save for) each layer runs under
     ``torch.utils.checkpoint``."""
-    if not (torch.is_grad_enabled() and _needs_grad(stacked)):
-        for i in range(n_layers):
-            x, _ = layer_fn(x, tree_index(stacked, i))
-        return x
-    layers = tree_unbind(stacked, n_layers)
-    if remat:
-        def layer(x, p):
-            return layer_fn(x, p)[0]
-        for p in layers:
-            x = checkpoint(layer, x, p, use_reentrant=False)
-        return x
-    for p in layers:
-        x, _ = layer_fn(x, p)
+    remat = remat and torch.is_grad_enabled() and _needs_grad(stacked)
+    for p in tree_unbind(stacked, n_layers):
+        if remat:
+            x = checkpoint(lambda x, p: layer_fn(x, p)[0], x, p,
+                           use_reentrant=False)
+        else:
+            x, _ = layer_fn(x, p)
     return x
 
 

@@ -59,8 +59,11 @@ def test_ssd_gradient_stays_finite_past_the_float32_exp_range(S):
     tokens both packages' gradients are finite and agree; at 128 the
     reference's are not (``exp`` of the masked decay overflows, and
     ``where``'s backward makes 0 · inf), the port's are, and they agree
-    with the reference's on every leaf the reference keeps finite. The
-    losses agree at both lengths."""
+    with the reference's on every leaf the reference keeps finite. At
+    128 every leaf of the port's (at its own chunk) is also held against
+    the reference's at a chunk of 64 tokens, whose ``exp`` does not
+    overflow: chunked SSD is the same function at any chunk. The losses
+    agree at both lengths."""
     cfg_j = dataclasses.replace(jconfigs.get_config("mamba2-130m"),
                                 n_layers=1)
     cfg_t = dataclasses.replace(tconfigs.get_config("mamba2-130m"),
@@ -84,3 +87,14 @@ def test_ssd_gradient_stays_finite_past_the_float32_exp_range(S):
         scale = max(float(np.abs(w).max()), 1e-30)
         assert float(np.abs(g.numpy() - w).max()) <= 1e-4 * scale, name
     assert ref_finite == (len(names) if S == 64 else 5), ref_finite
+    if S == 64:
+        return
+    cfg_64 = dataclasses.replace(cfg_j, ssm_chunk=64)
+    loss_64, grads_64 = jax.jit(jax.value_and_grad(jsteps.make_loss_fn(
+        cfg_64, compute_dtype=jnp.float32)))(params, jbatch(cfg_64, 0, 1, S))
+    assert abs(float(loss_t) - float(loss_64)) <= 1e-5 * abs(float(loss_64))
+    for name, g, w in zip(names, grads_t, jax.tree.leaves(grads_64)):
+        w = np.asarray(w)
+        assert np.isfinite(w).all(), name
+        scale = max(float(np.abs(w).max()), 1e-30)
+        assert float(np.abs(g.numpy() - w).max()) <= 1e-4 * scale, name
