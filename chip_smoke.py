@@ -74,9 +74,17 @@ against one; one train step on the card against the CPU port (granite-
 3-2b and mamba2-130m at their published widths cut to 2 layers, and
 the ten reduced configs); and ``launch/train.run_training`` at
 mamba2-130m whole failing after its step-1 checkpoint and resumed from
-it, with the checkpoint's save and restore MB/s. Exits nonzero on any
-failure. The last four lines are JSON: the model phase, the train
-phase, the kernel table, then ``{"ok": true, "device": ...}``. """
+it, with the checkpoint's save and restore MB/s. Last, the dry run
+(``dryrun_phase``, launch counts reset around it; none may launch):
+every TPC-H query planned again through the query phase's session with
+no worker invoked, every (arch × shape) traced at full width on ``meta``
+over the card, 16×16 and 2×16×16 meshes by ``repro_torch.launch.dryrun``
+in worker processes that see no card (no cell in error, the card's
+allocated memory unchanged), and one real step on the card of each cell
+whose traced peak fits it, its measured peak memory beside the traced
+one. Exits nonzero on any failure. The last five lines are JSON: the
+model phase, the train phase, the dry run, the kernel table, then
+``{"ok": true, "device": ...}``. """
 
 from __future__ import annotations
 
@@ -198,6 +206,7 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     state, launches = query_phase(torch, ext)
+    sessions = state["sessions"]
     try:
         service_phase(torch, ext, state)
         # first: after the many profiler sessions of the device-time
@@ -218,14 +227,20 @@ def main() -> int:
         kernels.extend(standalone_kernel_phase(torch, ext, dev, state,
                                                flush))
         log(f"standalone kernel phase: {time.perf_counter() - t0:.1f} s")
+        del state, flush
+        log(f"device memory held before the model phase: "
+            f"{torch.cuda.memory_allocated(dev) / 1e9:.3f} GB")
+        model = model_phase(torch, ext, dev, smi[0])
+        train = train_phase(torch, ext, dev, smi[0])
+        # the query phase's main session: its SF 1 catalog is planned
+        # again, not made again
+        dry = dryrun_phase(torch, ext, dev, smi[0], sessions[0])
     finally:
-        for s in state["sessions"]:
+        for s in sessions:
             s.close()
-    del state, flush
-    model = model_phase(torch, ext, dev, smi[0])
-    train = train_phase(torch, ext, dev, smi[0])
     log(json.dumps({"model": model}))
     log(json.dumps({"train": train}))
+    log(json.dumps({"dryrun": dry}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3224,6 +3239,210 @@ def train_phase(torch, ext, dev, smi):
     return {"card": smi, "full": a, "card_vs_cpu": b, "families": c,
             "checkpoint": d, "launches": launches, "tf32": False,
             "seconds": seconds}
+
+
+# -- the dry run: every cell traced on meta, held against the card ------------
+
+DRYRUN_MESHES = ["card", "16x16", "2x16x16"]
+DRYRUN_WORKERS = 6          # processes tracing cells side by side
+DRYRUN_BOUND_S = 10.0       # (c) runs the cells that fit with this bound
+
+
+def _no_card() -> None:
+    """A sweep worker: no card visible, so the trace cannot touch one."""
+    import os
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+
+
+def _sweep_cell(arch, shape, meshes):
+    """(records, seconds) of one (arch, shape) over ``meshes``, traced
+    once, in a worker process that sees no card."""
+    import torch
+    from repro_torch.launch import dryrun
+    if torch.cuda.is_available():
+        raise AssertionError("a dry-run worker sees a card")
+    t0 = time.perf_counter()
+    records = dryrun.run([arch], [shape], meshes, emit=lambda line: None)
+    return records, time.perf_counter() - t0
+
+
+def _real_args(torch, dev, cfg, cell, seed=0):
+    """A cell's arguments on ``dev``: seeded random parameters in the
+    cell's dtype (``init_params`` with a generator on ``dev``), token ids
+    below the vocab, encoder frames drawn normal, and every other leaf
+    (AdamW's moments and step, the caches and their position) zero, as
+    ``AdamW.init`` and ``init_cache`` make them."""
+    from repro_torch import tree
+    from repro_torch.models.model import init_params
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dtype = tree.leaves(cell.arg_specs[0])[0].dtype
+    params = init_params(cfg, gen, dtype)
+
+    def leaf(name, t):
+        if not t.dtype.is_floating_point and t.dim() > 0:
+            return torch.randint(0, cfg.vocab, tuple(t.shape), generator=gen,
+                                 dtype=t.dtype, device=dev)
+        if name.endswith("frames"):
+            return torch.randn(tuple(t.shape), generator=gen, dtype=t.dtype,
+                               device=dev)
+        return torch.zeros(tuple(t.shape), dtype=t.dtype, device=dev)
+    rest = [tree.unflatten(a, [leaf(n, t) for n, t in
+                               tree.flatten_with_names(a)])
+            for a in cell.arg_specs[1:]]
+    return (params, *rest)
+
+
+def _dryrun_step(torch, dev, rec, trace):
+    """(c) one real step of a cell on the card: the cell's step on seeded
+    random arguments, once to warm up and once timed by CUDA events; its
+    peak memory (the arguments included) beside the traced peak, and its
+    outputs against the trace's shapes and dtypes, the logits finite."""
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.launch.specs import build_cell
+    arch, shape = rec["arch"], rec["shape"]
+    cfg = get_config(arch)
+    cell = build_cell(cfg, arch, shape)
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    args = _real_args(torch, dev, cfg, cell)
+    with torch.no_grad():
+        out = cell.step_fn(*args)             # warm-up
+        _sync(torch)
+        del out
+        out, ms = _timed(torch, lambda: cell.step_fn(*args))
+    peak = (torch.cuda.max_memory_allocated(dev) - base) if on_card else 0
+    got, want = (tree.flatten_with_names(out),
+                 tree.flatten_with_names(trace.outputs))
+    if [(n, tuple(t.shape), t.dtype) for n, t in got] != \
+            [(n, tuple(t.shape), t.dtype) for n, t in want]:
+        raise AssertionError(f"dry run (c) {arch} {shape}: outputs differ "
+                             f"from the trace's")
+    logits = out[1] if cell.kind == "decode" else out[0]
+    if cell.kind != "train" and not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"dry run (c) {arch} {shape}: logits not "
+                             f"finite")
+    del out, args
+    r = rec["roofline"]
+    bound_ms = max(r["compute_s"], r["memory_s"]) * 1e3
+    row = {"arch": arch, "shape": shape, "kind": cell.kind,
+           "traced_peak_bytes": rec["peak_bytes"],
+           "measured_peak_bytes": peak,
+           "measured_over_traced": peak / rec["peak_bytes"],
+           "hbm_residency_bytes": rec["hbm_residency_bytes"],
+           "ms": ms, "bound_ms": bound_ms, "bound_share": bound_ms / ms}
+    log(f"dry run (c) {arch} {shape}: peak traced "
+        f"{rec['peak_bytes'] / 1e9:.3f} GB, measured {peak / 1e9:.3f} GB "
+        f"(x{row['measured_over_traced']:.3f}), analytic residency "
+        f"{rec['hbm_residency_bytes'] / 1e9:.3f} GB; step {ms:.3f} ms "
+        f"against max(compute, memory) {bound_ms:.4f} ms")
+    return row
+
+
+def dryrun_phase(torch, ext, dev, smi, session, *, sf=1,
+                 workers=DRYRUN_WORKERS, archs=None, shapes=None, out=None):
+    """``repro_torch.launch.dryrun`` on the card's machine, the launch
+    counts reset just before and read just after (none may launch): (a)
+    every TPC-H query planned through ``session`` (the query phase's, at
+    SF ``sf``) with no worker invoked; (b) every (arch × shape) traced at full
+    width on ``meta`` over the card, 16×16 and 2×16×16 meshes, each
+    (arch, shape) once, in ``workers`` processes that see no card, no
+    cell in error and the card's allocated memory unchanged; (c) each
+    cell whose traced peak fits the card and whose bound is at most
+    ``DRYRUN_BOUND_S`` runs one real step on the card: its peak memory
+    against the traced one, its time against the bound. ``out``: a path
+    to write every record to, one JSON object a line."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.specs import build_cell
+    from repro_torch.models.config import SHAPES
+
+    t_phase = time.perf_counter()
+    on_card = dev.type == "cuda"
+    ext.reset_launches()                     # the dry run starts here
+    invoked = session.platform.invocations
+    t0 = time.perf_counter()
+    failures = dryrun.dryrun_queries(sf=sf, session=session)
+    plans_s = time.perf_counter() - t0
+    if failures or session.platform.invocations != invoked:
+        raise AssertionError(f"dry run (a): {failures} plans failed, "
+                             f"{session.platform.invocations - invoked} "
+                             f"invocations")
+    if ext.launches():
+        raise AssertionError(f"dry run (a) launched {ext.launches()}")
+
+    # (b) the sweep, in processes that see no card
+    allocated = torch.cuda.memory_allocated(dev) if on_card else 0
+    cells = [(a, s) for a in (archs or ARCHS) for s in (shapes or SHAPES)]
+    t0 = time.perf_counter()
+    ctx = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(workers, mp_context=ctx,
+                             initializer=_no_card) as pool:
+        done = [pool.submit(_sweep_cell, a, s, DRYRUN_MESHES)
+                for a, s in cells]
+        results = [f.result() for f in done]
+    sweep_s = time.perf_counter() - t0
+    records = [r for recs, _ in results for r in recs]
+    for rec in records:
+        log("dry run (b) " + dryrun.summary(
+            f"{rec['arch']} × {rec['shape']} × {rec['mesh']}", rec))
+    cell_s = {f"{a} {s}": sec for (a, s), (_, sec) in zip(cells, results)}
+    log(f"dry run (b) seconds a cell: {json.dumps(cell_s)}")
+    errors = [r for r in records if r["status"] == "error"]
+    if errors:
+        raise AssertionError(f"dry run (b): {len(errors)} cells in error: "
+                             f"{[(r['arch'], r['shape'], r['mesh'], r['error']) for r in errors]}")
+    if on_card and torch.cuda.memory_allocated(dev) != allocated:
+        raise AssertionError("dry run (b) allocated memory on the card")
+    log(f"dry run (b): {len(records)} records, "
+        f"{sum(r['status'] == 'ok' for r in records)} ok, "
+        f"{sum(r['status'] == 'skip' for r in records)} skip, in "
+        f"{sweep_s:.1f} s ({workers} processes); slowest "
+        f"{max(cell_s, key=cell_s.get)} {max(cell_s.values()):.1f} s")
+
+    # (c) the cells that fit the card, one real step each
+    card = [r for r in records if r["mesh"] == "card" and r["status"] == "ok"]
+    run = [r for r in card if r["fits_card"] and max(
+        r["roofline"]["compute_s"], r["roofline"]["memory_s"])
+        <= DRYRUN_BOUND_S]
+    steps = []
+    for rec in run:
+        cell = build_cell(get_config(rec["arch"]), rec["arch"], rec["shape"])
+        steps.append(_dryrun_step(torch, dev, rec, dryrun.trace_cell(cell)))
+    _sync(torch)
+    launches = ext.launches()                # ... and ends here
+    if launches:
+        raise AssertionError(f"dry run launched kernels: {launches}")
+    seconds = time.perf_counter() - t_phase
+    log(f"dry run phase: {seconds:.1f} s")
+    if out is not None:
+        with open(out, "w") as f:
+            for rec in records:
+                f.write(json.dumps(rec) + "\n")
+    cells = {}
+    for r in records:
+        c = cells.setdefault(f"{r['arch']} {r['shape']}",
+                             {"status": r["status"]})
+        if r["status"] != "ok":
+            continue
+        roof = r["roofline"]
+        if r["mesh"] == "card":
+            c.update(trace_s=r["trace_s"], peak_bytes=r["peak_bytes"],
+                     fits_card=r["fits_card"], fits_hbm=r["fits_hbm"],
+                     compute_s=roof["compute_s"], memory_s=roof["memory_s"])
+        else:
+            c[r["mesh"]] = {"dominant": roof["dominant"],
+                            "collective_s": roof["collective_s"],
+                            "roofline_fraction": r["roofline_fraction"]}
+    return {"card": smi, "plans": {"failures": failures, "seconds": plans_s},
+            "sweep_seconds": sweep_s, "workers": workers, "cells": cells,
+            "steps": steps, "launches": launches, "seconds": seconds}
 
 
 if __name__ == "__main__":

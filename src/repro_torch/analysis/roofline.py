@@ -61,6 +61,17 @@ H100_SXM = {
     "hbm_bandwidth": 3.35e12,       # bytes/s
     "hbm_bytes": 80e9,              # HBM3 capacity
     "peak_fp64_flops": 34e12,       # CUDA-core FP64 (no tensor cores)
+    # dense tensor-core and CUDA-core peaks, without sparsity (H100 SXM5
+    # data sheet; the peaks PERF.md divides the kernels' operations by)
+    "peak_bf16_flops": 989.4e12,
+    "peak_tf32_flops": 494.7e12,
+    "peak_fp32_flops": 66.9e12,
+    # NVLink 4: 18 links, 900 GB/s both ways, 450 GB/s a direction a GPU,
+    # 8 GPUs a node behind NVSwitch (HGX H100 data sheet)
+    "nvlink_bandwidth": 450e9,
+    "gpus_per_node": 8,
+    # across nodes: one 400 Gb/s NDR InfiniBand port a GPU (ConnectX-7)
+    "internode_bandwidth": 50e9,
 }
 
 THREADS = 256           # threads per CTA for every scan-aggregate kernel

@@ -28,7 +28,14 @@ INT64_SENTINEL = np.iinfo(np.int64).max
 Cols = dict[str, torch.Tensor]
 
 
-# -- hashing (numpy: exchange destinations are computed on the host) ------------
+# -- hashing (numpy and torch twins; must agree bit for bit) --------------------
+#
+# Exchange destinations are computed on the host (``np_hash_dest``); the
+# torch twins below are the counterparts of the reference's jnp ones. Torch
+# has no uint64 arithmetic, so the uint64 bits live in int64: XOR is the
+# same, ``>>`` is masked to be logical, the products wrap mod 2^64 (the
+# multipliers written as their two's-complement int64 values), and the
+# unsigned remainder is taken on 32-bit halves.
 
 _M1 = 0xBF58476D1CE4E5B9
 _M2 = 0x94D049BB133111EB
@@ -47,6 +54,44 @@ def combine_hash_np(cols: list[np.ndarray]) -> np.ndarray:
     for c in cols[1:]:
         h = hash64_np(h ^ hash64_np(c))
     return h
+
+
+def _signed64(m: int) -> int:
+    return m - (1 << 64) if m >> 63 else m
+
+
+_M1_I64 = _signed64(_M1)
+_M2_I64 = _signed64(_M2)
+_MASK32 = 0xFFFFFFFF
+
+
+def _shr(x: torch.Tensor, n: int) -> torch.Tensor:
+    """Logical right shift of the uint64 bits held in int64 ``x``."""
+    return (x >> n) & ((1 << (64 - n)) - 1)
+
+
+def hash64(x: torch.Tensor) -> torch.Tensor:
+    """``hash64_np`` on a tensor: the uint64 hash's bits as int64."""
+    x = x.to(torch.int64)
+    x = (x ^ _shr(x, 30)) * _M1_I64
+    x = (x ^ _shr(x, 27)) * _M2_I64
+    return x ^ _shr(x, 31)
+
+
+def combine_hash(cols: list[torch.Tensor]) -> torch.Tensor:
+    h = hash64(cols[0])
+    for c in cols[1:]:
+        h = hash64(h ^ hash64(c))
+    return h
+
+
+def umod(h: torch.Tensor, n: int) -> torch.Tensor:
+    """The uint64 bits of ``h`` modulo ``n`` (1 <= n <= 2^31), in int64:
+    (hi · 2^32 + lo) mod n from the 32-bit halves, no product past 2^62."""
+    if not 1 <= n <= 1 << 31:
+        raise ValueError(f"n must lie in [1, 2^31], got {n}")
+    hi, lo = _shr(h, 32), h & _MASK32
+    return ((hi % n) * ((1 << 32) % n) + lo) % n
 
 
 # -- row-wise operators --------------------------------------------------------
@@ -267,6 +312,19 @@ def make_pk_join_probe(probe_key: str, build_key: str,
 
 
 # -- exchange partitioning -------------------------------------------------------
+
+def make_hash_partitioner(key_cols: list[str], n_dest: int):
+    """Appends a __dest column (hash of the key columns mod n_dest; -1 on
+    masked rows)."""
+
+    def op(cols: Cols, mask):
+        h = combine_hash([cols[c] for c in key_cols])
+        dest = umod(h, n_dest).to(torch.int32)
+        out = dict(cols)
+        out["__dest"] = torch.where(mask, dest, -1)
+        return out, mask
+    return op
+
 
 def np_key_hash(columns: dict[str, np.ndarray],
                 key_cols: list[str]) -> np.ndarray:

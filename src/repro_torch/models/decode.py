@@ -86,7 +86,10 @@ def decode_step(cfg: ModelConfig, params, cache: dict, tokens,
     pos = cache["pos"]
     x = params["embed"].to(compute_dtype)[tokens][:, None, :]
     if cfg.enc_dec:
-        x = x + params["dec_pos"].to(compute_dtype)[pos.long()][None, None]
+        # ``index_select`` of a one-element index: indexing with the 0-d
+        # ``pos`` would read it back to the host (``.item()``)
+        x = x + params["dec_pos"].to(compute_dtype).index_select(
+            0, pos.long().reshape(1))[None]
     positions = pos[None]
     C = cache["k"].shape[3] if "k" in cache else 0
     slot = pos % C if (cfg.sliding_window and C) else pos

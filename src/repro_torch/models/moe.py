@@ -51,7 +51,10 @@ def route(x, router, *, k: int, capacity: int):
     # rank of each (token, slot) within its expert via stable sort
     order = torch.argsort(flat_e, stable=True)
     sorted_e = flat_e[order]
-    counts = torch.bincount(flat_e, minlength=E)
+    # a scatter-add, not ``bincount``: the same counts, with no read of
+    # the maximum back to the host and a kernel on ``meta``
+    counts = torch.zeros(E, dtype=torch.long, device=x.device).scatter_add_(
+        0, flat_e, torch.ones_like(flat_e))
     starts = torch.cumsum(counts, 0) - counts               # exclusive
     rank_sorted = torch.arange(Tk, device=x.device) - starts[sorted_e]
     rank = torch.empty_like(rank_sorted)

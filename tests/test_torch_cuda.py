@@ -1266,3 +1266,29 @@ def test_checkpoint_from_the_card_restores_onto_the_card():
                                                     "opt": state})):
         assert a.device == card and a.dtype == b.dtype
         assert torch.equal(a, b)
+
+
+def test_exchange_hash_on_the_card_equals_the_host(card):
+    """``hash64`` / ``make_hash_partitioner`` on the card: int64 products
+    wrap mod 2^64 there too, and the destinations equal the host's
+    ``np_hash_dest`` bit for bit (the CPU side is in
+    ``tests/test_torch_hash.py``)."""
+    from repro_torch.exec import operators as tops
+    i64 = np.iinfo(np.int64)
+    rng = np.random.default_rng(0)
+    x = np.concatenate([np.array([0, 1, -1, i64.min, i64.max], np.int64),
+                        rng.integers(i64.min, i64.max, 10_000,
+                                     dtype=np.int64, endpoint=True)])
+    y = rng.integers(i64.min, i64.max, x.shape[0], dtype=np.int64)
+    h = tops.hash64(torch.from_numpy(x).to(card)).cpu().numpy()
+    assert np.array_equal(h.view(np.uint64), tops.hash64_np(x))
+    mask = rng.random(x.shape[0]) < 0.8
+    for n_dest in (1, 3, 7, 64, 2**31 - 1):
+        got, _ = tops.make_hash_partitioner(["x", "y"], n_dest)(
+            {"x": torch.from_numpy(x).to(card),
+             "y": torch.from_numpy(y).to(card)},
+            torch.from_numpy(mask).to(card))
+        dest = got["__dest"].cpu().numpy()
+        want = tops.np_hash_dest({"x": x, "y": y}, ["x", "y"], n_dest)
+        assert np.array_equal(dest[mask], want[mask]), n_dest
+        assert (dest[~mask] == -1).all()
