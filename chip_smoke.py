@@ -82,9 +82,19 @@ over the card, 16×16 and 2×16×16 meshes by ``repro_torch.launch.dryrun``
 in worker processes that see no card (no cell in error, the card's
 allocated memory unchanged), and one real step on the card of each cell
 whose traced peak fits it, its measured peak memory beside the traced
-one. Exits nonzero on any failure. The last five lines are JSON: the
-model phase, the train phase, the dry run, the kernel table, then
-``{"ok": true, "device": ...}``. """
+one. Last, the model stack over a ``DeviceMesh`` (``mesh_phase``, float32,
+TF32 off, launch counts reset around it; none may launch): a process
+group of one rank over NCCL in this process and the one-card (data 1,
+model 1) mesh, every parameter, optimizer-state and cache leaf a
+DTensor: granite-3-2b whole served (batch 4, 64 prompt tokens, 31
+decode steps) and one full-width train step (8 × 128, remat) against
+the port without a mesh on the card, with both warm times and peak
+memory; the ten reduced configs' train, prefill and decode steps
+likewise; and, on a machine with four cards, the 2×2 (data, model)
+mesh over four processes against the one-card results (else it logs
+that it was not run). Exits nonzero on any failure. The last six lines
+are JSON: the model phase, the train phase, the dry run, the mesh
+phase, the kernel table, then ``{"ok": true, "device": ...}``. """
 
 from __future__ import annotations
 
@@ -238,9 +248,11 @@ def main() -> int:
     finally:
         for s in sessions:
             s.close()
+    mesh = mesh_phase(torch, ext, dev, smi[0])
     log(json.dumps({"model": model}))
     log(json.dumps({"train": train}))
     log(json.dumps({"dryrun": dry}))
+    log(json.dumps({"mesh": mesh}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3443,6 +3455,410 @@ def dryrun_phase(torch, ext, dev, smi, session, *, sf=1,
     return {"card": smi, "plans": {"failures": failures, "seconds": plans_s},
             "sweep_seconds": sweep_s, "workers": workers, "cells": cells,
             "steps": steps, "launches": launches, "seconds": seconds}
+
+
+# -- the mesh phase: the model stack over a DeviceMesh ------------------------
+
+MESH_REL = 1e-5             # serving logits of max |logit|; loss, grad_norm
+MESH_LEAF_REL = 1e-4        # each updated leaf, of its max
+MESH_CARDS = 4              # the 2×2 (data, model) mesh over cards
+MESH_ILL = 100              # (d): |clipped gradient| under this · eps
+MESH_LR1 = 3e-4             # the trainer's rate at step 1
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _dtensor_leaves(tree_) -> bool:
+    from repro_torch import tree
+    from torch.distributed.tensor import DTensor
+    return all(isinstance(t, DTensor) for t in tree.leaves(tree_))
+
+
+def _mesh_serve(torch, cfg, params, prompts, new, mesh, frames=None):
+    """Prefill, then ``new - 1`` decode steps fed the tokens ``prompts``
+    continue with (``prompts`` holds them past its prompt length ``P``),
+    float32: each step's logits (plain tensors) and the final cache. On
+    a mesh, ``params`` are DTensors and each step's tokens are laid out
+    as a batch."""
+    from repro_torch.models.decode import decode_step, prefill
+    from repro_torch.parallel import sharding as sh
+    P = prompts.shape[1] - (new - 1)
+
+    def batch(t):
+        if mesh is None or t is None:
+            return t
+        plan = sh.make_plan(mesh)
+        return sh.shard_tree(plan, {"t": t}, sh.batch_shardings(
+            plan, {"t": t}))["t"]
+    f32 = dict(compute_dtype=torch.float32, mesh=mesh)
+    logits, cache = prefill(cfg, params, batch(prompts[:, :P]),
+                            frames=batch(frames), max_len=P + new, **f32)
+    out = [sh.gather_tree(logits)]
+    for i in range(new - 1):
+        logits, cache = decode_step(cfg, params, cache,
+                                    batch(prompts[:, P + i]), **f32)
+        out.append(sh.gather_tree(logits))
+    return out, cache
+
+
+def _mesh_train(torch, cfg, params, batch, mesh, steps=1):
+    """``steps`` trainer steps (remat, float32) from ``params``: the first
+    step's loss and grad_norm, its updated parameters (whole, on the
+    host), the last step's ms between CUDA events and the step's state."""
+    from repro_torch import tree
+    from repro_torch.launch.train import make_trainer
+    from repro_torch.models.steps import make_train_step
+    from repro_torch.parallel import sharding as sh
+    opt, _ = make_trainer(cfg, steps=5)
+    step = make_train_step(cfg, opt, compute_dtype=torch.float32, mesh=mesh)
+    state = opt.init(params)
+    if mesh is not None:
+        plan = sh.make_plan(mesh)
+        batch = sh.shard_tree(plan, batch, sh.batch_shardings(plan, batch))
+    first, ms = None, None
+    for i in range(steps):
+        (params, state, m), ms = _timed(
+            torch, lambda: step(params, state, batch))
+        if i == 0:
+            # a copy: the next step updates the parameters in place, and
+            # a replicated leaf's whole value is its local tensor
+            first = {"loss": float(m["loss"]),
+                     "grad_norm": float(m["grad_norm"]),
+                     "params": tree.tree_map(
+                         lambda t: t.detach().to("cpu", copy=True),
+                         sh.gather_tree(params))}
+    return first, ms, params, state
+
+
+def _hold_step(torch, got, want, ctx, ill=None):
+    """A mesh step's first loss, grad_norm and updated leaves against the
+    unsharded step's. ``ill``: per leaf, the elements whose first AdamW
+    update is ill-conditioned in their gradient (``_ill_elements``), held
+    to twice the step's rate instead."""
+    from repro_torch import tree
+    for k in ("loss", "grad_norm"):
+        r = abs(got[k] - want[k]) / max(abs(want[k]), 1e-30)
+        if not r <= MESH_REL:
+            raise AssertionError(f"{ctx}: {k} {got[k]} vs {want[k]} ({r:.3g}"
+                                 f" > {MESH_REL:g})")
+    worst = 0.0
+    for i, ((name, a), b) in enumerate(zip(
+            tree.flatten_with_names(got["params"]),
+            tree.leaves(want["params"]))):
+        if ill is not None:
+            m = ill[i]
+            if m.any() and float((a[m] - b[m]).abs().max()) > 2 * MESH_LR1:
+                raise AssertionError(f"{ctx} {name}: an ill-conditioned "
+                                     f"element moved past 2·lr")
+            a, b = a.masked_fill(m, 0), b.masked_fill(m, 0)
+        worst = max(worst, _rel_err(a, b, f"{ctx} {name}", MESH_LEAF_REL))
+    return worst
+
+
+def _ill_elements(torch, cfg, params, batch):
+    """Per leaf (on the host), the elements whose clipped gradient is
+    nonzero and under ``MESH_ILL`` · eps: AdamW's first step moves them
+    by ``lr · ĝ / (|ĝ| + eps)``, which the last bits of the gradient
+    (any other summation order) move by up to ``2 · lr``."""
+    from repro_torch.launch.train import make_trainer
+    from repro_torch.models.steps import make_grad_fn
+    opt, _ = make_trainer(cfg, steps=5)
+    _, grads = make_grad_fn(cfg, compute_dtype=torch.float32)(params, batch)
+    norm = float(torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads)))
+    scale = min(1.0, opt.clip_norm / (norm + 1e-9))
+    return [((g.abs() * scale < MESH_ILL * opt.eps) & (g != 0)).cpu()
+            for g in grads]
+
+
+def _mesh_reduced(torch, dev, mesh, arch):
+    """One reduced config on the mesh against the port without one on
+    the card: a train step (4 × 32), prefill (4 × 32) and two decode
+    steps."""
+    import numpy as np
+    from repro_torch import tree
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch.train import synthetic_batch
+    from repro_torch.models.model import init_params
+    from repro_torch.parallel import sharding as sh
+    cfg = get_reduced(arch)
+    plan = sh.make_plan(mesh)
+
+    def fresh():
+        return init_params(cfg, torch.Generator(dev).manual_seed(0),
+                           device=dev)
+    batch = synthetic_batch(cfg, 0, 4, 32, device=dev)
+    want, _, _, _ = _mesh_train(torch, cfg, fresh(), batch, None)
+    p = fresh()
+    got, _, dp, state = _mesh_train(
+        torch, cfg, sh.shard_tree(plan, p, sh.param_shardings(plan, p)),
+        batch, mesh)
+    if not (_dtensor_leaves(dp) and _dtensor_leaves(state)):
+        raise AssertionError(f"mesh (c) {arch}: a leaf is not a DTensor")
+    leaf = _hold_step(torch, got, want, f"mesh (c) {arch} train")
+    del dp, state
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (4, 34)).astype(np.int32)).to(dev)
+    frames = batch.get("frames")
+    p = fresh()
+    want_s, _ = _mesh_serve(torch, cfg, p, tokens, 3, None, frames)
+    got_s, cache = _mesh_serve(
+        torch, cfg, sh.shard_tree(plan, p, sh.param_shardings(plan, p)),
+        tokens, 3, mesh, frames)
+    if not _dtensor_leaves(cache):
+        raise AssertionError(f"mesh (c) {arch}: a cache leaf is not a "
+                             f"DTensor")
+    serve = max(_rel_err(g, w, f"mesh (c) {arch} serve step {i}",
+                         MESH_LEAF_REL)
+                for i, (g, w) in enumerate(zip(got_s, want_s)))
+    log(f"mesh (c) {arch} reduced: train loss {got['loss']:.6f} "
+        f"grad_norm {got['grad_norm']:.6f}, leaves {leaf:.3g} of max; "
+        f"prefill and 2 decode steps' logits {serve:.3g} of max (bars "
+        f"{MESH_REL:g} / {MESH_LEAF_REL:g})")
+    return {"train_leaf_rel": leaf, "serve_rel": serve}
+
+
+def _serve_tokens(torch, dev, cfg):
+    """The serving shape's prompts and the tokens the decode steps are
+    fed (random, as ``run_serving``'s prompts are)."""
+    import numpy as np
+    B, P, new = (SERVE_SHAPE[k] for k in ("batch", "prompt_len",
+                                          "new_tokens"))
+    return torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (B, P + new - 1)).astype(np.int32)).to(dev)
+
+
+def mesh_phase(torch, ext, dev, smi, *, arch=SERVE_ARCH, reduced=False):
+    """The model stack over a ``torch.distributed`` ``DeviceMesh``, in
+    float32 with TF32 off, the launch counts reset just before and read
+    just after (the model path launches no kernel): a process group of
+    one rank over NCCL in this process and the one-card (data 1, model
+    1) mesh, where every parameter, optimizer-state and cache leaf is a
+    DTensor. (a) granite-3-2b whole served on the mesh (batch 4, 64
+    prompt tokens, 31 decode steps fed the same tokens) against the port
+    without a mesh on the card, each step's logits within ``MESH_REL``
+    of their largest; (b) one full-width train step (8 × 128, the
+    trainer's, remat) on the mesh against the unsharded step from the
+    same initial tree, run first and freed: loss and grad_norm within
+    ``MESH_REL``, each updated leaf within ``MESH_LEAF_REL`` of its
+    largest; warm ms (the second step of each) and peak memory of both;
+    (c) the ten reduced configs' train step, prefill and two decode
+    steps on the mesh against the port without one; (d) with four cards
+    or more, granite-3-2b whole on the 2×2 (data, model) mesh of four
+    processes, one a card, against (a) and (b). ``arch`` / ``reduced``
+    replace (a)'s and (b)'s model in a rehearsal without a card."""
+    import torch.distributed as dist
+    from repro_torch.configs import ARCHS, get_config, get_reduced
+    from repro_torch.launch.mesh import card_mesh, device_mesh
+    from repro_torch.launch.train import synthetic_batch
+    from repro_torch.models.model import init_params
+    from repro_torch.parallel import sharding as sh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    on_card = dev.type == "cuda"
+    # a fact of the machine, taken before any step runs
+    cards = torch.cuda.device_count() if on_card else 0
+    ext.reset_launches()                     # the mesh path starts here
+    if on_card:
+        torch.cuda.set_device(dev)
+    dist.init_process_group("nccl" if on_card else "gloo",
+                            init_method=f"tcp://localhost:{_free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = device_mesh(card_mesh(), dev.type)
+        plan = sh.make_plan(mesh)
+        cfg = get_reduced(arch) if reduced else get_config(arch)
+
+        def fresh():
+            return init_params(cfg, torch.Generator(dev).manual_seed(0),
+                               device=dev)
+
+        def peak_from():
+            if not on_card:
+                return lambda: 0
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            return lambda: torch.cuda.max_memory_allocated(dev) - base
+
+        # (a) serving, the port without a mesh first
+        new = SERVE_SHAPE["new_tokens"]
+        tokens = _serve_tokens(torch, dev, cfg)
+        params = fresh()
+        peak = peak_from()
+        want, _ = _mesh_serve(torch, cfg, params, tokens, new, None)
+        _, plain_ms = _timed(torch, lambda: _mesh_serve(
+            torch, cfg, params, tokens, new, None))
+        plain_peak = peak()
+        dparams = sh.shard_tree(plan, params, sh.param_shardings(plan,
+                                                                 params))
+        peak = peak_from()
+        got, cache = _mesh_serve(torch, cfg, dparams, tokens, new, mesh)
+        if not (_dtensor_leaves(dparams) and _dtensor_leaves(cache)):
+            raise AssertionError("mesh (a): a parameter or cache leaf is "
+                                 "not a DTensor")
+        _, mesh_ms = _timed(torch, lambda: _mesh_serve(
+            torch, cfg, dparams, tokens, new, mesh))
+        mesh_peak = peak()
+        serve_err = [_rel_err(g, w, f"mesh (a) step {i}", MESH_REL)
+                     for i, (g, w) in enumerate(zip(got, want))]
+        a = {"arch": arch, "layers": cfg.n_layers, **SERVE_SHAPE,
+             "plain_ms": plain_ms, "mesh_ms": mesh_ms,
+             "plain_peak_bytes": plain_peak, "mesh_peak_bytes": mesh_peak,
+             "max_rel_err": max(serve_err)}
+        log(f"mesh (a) {arch} ({cfg.n_layers} layers) served on the "
+            f"{dict(card_mesh().shape)} DeviceMesh on {smi}: prefill + "
+            f"{new - 1} decode steps warm {mesh_ms:.1f} ms (without a "
+            f"mesh {plain_ms:.1f} ms); peak {mesh_peak / 1e9:.2f} GB "
+            f"({plain_peak / 1e9:.2f} GB); logits of {new} steps within "
+            f"{max(serve_err):.3g} of max (bar {MESH_REL:g})")
+        del params, dparams, cache, got
+
+        # (b) one train step at full width, the unsharded one first
+        batch = synthetic_batch(cfg, 0, TRAIN_SHAPE["batch"],
+                                TRAIN_SHAPE["seq"], device=dev)
+        # each peak counts from the parameters in place, as in (a)
+        p = fresh()
+        peak = peak_from()
+        want_t, plain_ms_t, p, st = _mesh_train(torch, cfg, p, batch, None,
+                                                steps=2)
+        plain_peak_t = peak()
+        del p, st
+        p = fresh()
+        p = sh.shard_tree(plan, p, sh.param_shardings(plan, p))
+        peak = peak_from()
+        got_t, mesh_ms_t, p, st = _mesh_train(torch, cfg, p, batch, mesh,
+                                              steps=2)
+        mesh_peak_t = peak()
+        if not (_dtensor_leaves(p) and _dtensor_leaves(st)):
+            raise AssertionError("mesh (b): a parameter or optimizer-state "
+                                 "leaf is not a DTensor")
+        del p, st
+        leaf = _hold_step(torch, got_t, want_t, f"mesh (b) {arch}")
+        b = {"arch": arch, **TRAIN_SHAPE, "loss": got_t["loss"],
+             "grad_norm": got_t["grad_norm"], "plain_loss": want_t["loss"],
+             "plain_grad_norm": want_t["grad_norm"],
+             "max_leaf_rel_err": leaf, "plain_ms": plain_ms_t,
+             "mesh_ms": mesh_ms_t, "plain_peak_bytes": plain_peak_t,
+             "mesh_peak_bytes": mesh_peak_t}
+        log(f"mesh (b) {arch} train step {TRAIN_SHAPE['batch']} x "
+            f"{TRAIN_SHAPE['seq']} on the mesh on {smi}: warm "
+            f"{mesh_ms_t:.1f} ms (without a mesh {plain_ms_t:.1f} ms); "
+            f"peak {mesh_peak_t / 1e9:.2f} GB ({plain_peak_t / 1e9:.2f} "
+            f"GB); loss {got_t['loss']:.6f} ({want_t['loss']:.6f}), "
+            f"grad_norm {got_t['grad_norm']:.6f} "
+            f"({want_t['grad_norm']:.6f}), leaves within {leaf:.3g} of "
+            f"max")
+        del want_t, got_t
+
+        # (c) the reduced configs
+        t0 = time.perf_counter()
+        c = {name: _mesh_reduced(torch, dev, mesh, name) for name in ARCHS}
+        log(f"mesh (c): {len(c)} reduced configs in "
+            f"{time.perf_counter() - t0:.1f} s")
+    finally:
+        dist.destroy_process_group()
+
+    # (d) the 2×2 card mesh, where the machine has the cards
+    if cards >= MESH_CARDS:
+        d = _mesh_cards(torch, arch, reduced, tokens, want, batch)
+    else:
+        log(f"mesh (d): the 2x2 card mesh was not run: this machine has "
+            f"{cards} card(s) and it needs {MESH_CARDS}")
+        d = {"run": False, "cards": cards}
+    _sync(torch)
+    launches = ext.launches()                # ... and ends here
+    if launches:
+        raise AssertionError(f"mesh path launched kernels: {launches}")
+    seconds = time.perf_counter() - t_phase
+    log(f"mesh phase: {seconds:.1f} s")
+    return {"card": smi, "serve": a, "train": b, "families": c,
+            "cards_2x2": d, "launches": launches, "tf32": False,
+            "seconds": seconds}
+
+
+def _mesh_card_rank(rank, world, port, arch, reduced, tokens, batch, out):
+    """One rank of (d): card ``rank`` in a 2×2 (data, model) mesh over
+    NCCL (gloo without a card); it serves and takes one train step as
+    (a) and (b) do, and rank 0 saves the logits, the step's metrics and
+    its updated parameters to ``out``."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config, get_reduced
+    from repro_torch.launch.mesh import device_mesh, make_debug_mesh
+    from repro_torch.models.model import init_params
+    from repro_torch.parallel import sharding as sh
+    on_card = torch.cuda.is_available()
+    dev = torch.device("cuda", rank) if on_card else torch.device("cpu")
+    if on_card:
+        torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("nccl" if on_card else "gloo",
+                            init_method=f"tcp://localhost:{port}",
+                            world_size=world, rank=rank)
+    try:
+        mesh = device_mesh(make_debug_mesh(2, 2), dev.type)
+        plan = sh.make_plan(mesh)
+        cfg = get_reduced(arch) if reduced else get_config(arch)
+
+        def fresh():
+            p = init_params(cfg, torch.Generator(dev).manual_seed(0),
+                            device=dev)
+            return sh.shard_tree(plan, p, sh.param_shardings(plan, p))
+        tokens = tokens.to(dev)
+        logits, _ = _mesh_serve(torch, cfg, fresh(), tokens,
+                                SERVE_SHAPE["new_tokens"], mesh)
+        first, ms, _, _ = _mesh_train(torch, cfg, fresh(),
+                                      _tree_to(batch, dev), mesh, steps=2)
+        if rank == 0:
+            torch.save({"logits": [t.cpu() for t in logits], "train": first,
+                        "train_ms": ms}, out)
+    finally:
+        dist.destroy_process_group()
+
+
+def _mesh_cards(torch, arch, reduced, tokens, want, batch):
+    """(d): four processes, one a card, on the 2×2 mesh, held against the
+    one-card results of (a) (``want``: each step's logits) and (b),
+    whose unsharded step runs again here to keep its parameters."""
+    import tempfile
+    import torch.multiprocessing as mp
+    from repro_torch.configs import get_config, get_reduced
+    from repro_torch.models.model import init_params
+    cfg = get_reduced(arch) if reduced else get_config(arch)
+    dev = tokens.device
+    with tempfile.TemporaryDirectory() as tmp:
+        out = f"{tmp}/rank0.pt"
+        t0 = time.perf_counter()
+        mp.start_processes(_mesh_card_rank, args=(
+            MESH_CARDS, _free_port(), arch, reduced, tokens.cpu(),
+            _tree_to(batch, "cpu"), out), nprocs=MESH_CARDS,
+            start_method="spawn")
+        seconds = time.perf_counter() - t0
+        got = torch.load(out)
+    err = max(_rel_err(g, w, f"mesh (d) step {i}", MESH_REL)
+              for i, (g, w) in enumerate(zip(got["logits"], want)))
+    def fresh():
+        return init_params(cfg, torch.Generator(dev).manual_seed(0),
+                           device=dev)
+    # four cards sum in another order than one: the elements whose
+    # first update that moves are held apart
+    ill = _ill_elements(torch, cfg, fresh(), batch)
+    want_t, _, _, _ = _mesh_train(torch, cfg, fresh(), batch, None)
+    leaf = _hold_step(torch, got["train"], want_t, "mesh (d) train", ill)
+    log(f"mesh (d) {arch} on the 2x2 mesh of {MESH_CARDS} cards: logits "
+        f"within {err:.3g} of the one-card run's max, train step leaves "
+        f"{leaf:.3g}, warm train step {got['train_ms']:.1f} ms; "
+        f"{seconds:.1f} s")
+    return {"run": True, "cards": MESH_CARDS, "max_rel_err": err,
+            "train_leaf_rel": leaf, "train_ms": got["train_ms"],
+            "seconds": seconds}
 
 
 if __name__ == "__main__":

@@ -8,6 +8,11 @@ carry a shape and a dtype and no storage: ``init_params`` walks the
 parameter shapes with no generator (``models/model.py``), and the cache
 and the optimizer state are made on ``meta`` directly. Nothing is
 allocated, so a cell at llama3-405b's full width costs nothing to build.
+
+``build_cell(..., mesh=)`` passes ``mesh`` to the step: None (the dry
+run lays the rule tables over an ``AxisMesh`` itself) or a
+``DeviceMesh``, whose step then takes DTensor arguments laid out by the
+rule tables (``parallel/sharding.shard_tree``), not these stand-ins.
 """
 
 from __future__ import annotations

@@ -15,6 +15,14 @@ Cache layouts (leading axis = layers):
 The K/V cache is ``compute_dtype``; ``pos`` is a 0-d int32 tensor on the
 model's device. Every entry point returns a new cache and leaves the one
 it was given as it was, as the reference's does.
+
+On a device mesh (``mesh``, a ``DeviceMesh``) the embeddings are pinned
+batch over DP, and every sublayer takes the mesh and pins its weights
+and projections as the full-sequence forward does (the reference passes
+its mesh to the FFN and decode attention only and leaves the rest to
+GSPMD). ``prefill`` and ``decode_step`` return the cache laid out by
+``parallel/sharding.cache_shardings``, as the reference's jitted steps'
+``out_shardings`` lay it.
 """
 
 from __future__ import annotations
@@ -24,10 +32,12 @@ import torch
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.model import (_heads, _split_zxbcdt, _unheads,
-                                      attention_sublayer, encode,
-                                      ffn_sublayer, lm_logits, ssm_sublayer,
-                                      tree_index)
+from repro_torch.models.model import (_split_zxbcdt, attention_sublayer,
+                                      embed_tokens, embedding, encode,
+                                      ffn_sublayer, lm_logits, out_project,
+                                      project, ssm_sublayer, tree_index,
+                                      use_weight)
+from repro_torch.parallel import sharding as sh
 
 
 def _loop(layer, x, xs, n_layers: int):
@@ -82,9 +92,16 @@ def decode_step(cfg: ModelConfig, params, cache: dict, tokens,
                 *, mesh=None, compute_dtype=torch.bfloat16,
                 scan_layers: bool = True):
     """tokens (B,) → (logits (B, V), new cache)."""
-    L._no_mesh(mesh)
+    with sh.plain_as_replicated(mesh):
+        logits, cache = _decode_step(cfg, params, cache, tokens, mesh,
+                                     compute_dtype)
+    return logits, _lay_out_cache(mesh, cache)
+
+
+def _decode_step(cfg, params, cache, tokens, mesh, compute_dtype):
     pos = cache["pos"]
-    x = params["embed"].to(compute_dtype)[tokens][:, None, :]
+    emb = embedding(params, compute_dtype, mesh)
+    x = embed_tokens(emb, tokens[:, None], mesh)
     if cfg.enc_dec:
         # ``index_select`` of a one-element index: indexing with the 0-d
         # ``pos`` would read it back to the host (``.item()``)
@@ -97,9 +114,9 @@ def decode_step(cfg: ModelConfig, params, cache: dict, tokens,
 
     def attn_decode(p, h, k_l, v_l):
         cd = h.dtype
-        q = _heads(torch.matmul(h, p["wq"].to(cd)), cfg.n_heads, hd)
-        k = _heads(torch.matmul(h, p["wk"].to(cd)), cfg.n_kv_heads, hd)
-        v = _heads(torch.matmul(h, p["wv"].to(cd)), cfg.n_kv_heads, hd)
+        q = project(h, p["wq"], cfg.n_heads, hd, mesh)
+        k = project(h, p["wk"], cfg.n_kv_heads, hd, mesh)
+        v = project(h, p["wv"], cfg.n_kv_heads, hd, mesh)
         if cfg.qk_norm:
             q = L.rms_norm(q, p["q_norm"].to(cd), cfg.norm_eps)
             k = L.rms_norm(k, p["k_norm"].to(cd), cfg.norm_eps)
@@ -116,8 +133,8 @@ def decode_step(cfg: ModelConfig, params, cache: dict, tokens,
         v_l = torch.where(write, v.to(v_l.dtype), v_l)
         o = L.decode_attention(q, k_l, v_l,
                                torch.clamp(pos, max=C - 1)
-                               if cfg.sliding_window else pos)
-        return torch.matmul(_unheads(o), p["wo"].to(cd)), k_l, v_l
+                               if cfg.sliding_window else pos, mesh)
+        return out_project(o, p["wo"], mesh), k_l, v_l
 
     def layer(h_in, xs):
         p = xs["p"]
@@ -125,13 +142,15 @@ def decode_step(cfg: ModelConfig, params, cache: dict, tokens,
         hn = L.rms_norm(h_in, p["attn_norm"].to(h_in.dtype), cfg.norm_eps)
         if cfg.family == "ssm":
             y, conv, state = ssm_sublayer(
-                cfg, p, hn, xs["conv_state"], xs["ssm_state"], decode=True)
+                cfg, p, hn, xs["conv_state"], xs["ssm_state"], decode=True,
+                mesh=mesh)
             h = h_in + y
             outs.update(conv_state=conv, ssm_state=state)
         elif cfg.hybrid_parallel:
             a, k_l, v_l = attn_decode(p, hn, xs["k"], xs["v"])
             s, conv, state = ssm_sublayer(
-                cfg, p, hn, xs["conv_state"], xs["ssm_state"], decode=True)
+                cfg, p, hn, xs["conv_state"], xs["ssm_state"], decode=True,
+                mesh=mesh)
             h = h_in + 0.5 * (a + s)
             outs.update(k=k_l, v=v_l, conv_state=conv, ssm_state=state)
             hn2 = L.rms_norm(h, p["mlp_norm"].to(h.dtype), cfg.norm_eps)
@@ -143,14 +162,13 @@ def decode_step(cfg: ModelConfig, params, cache: dict, tokens,
             if cfg.enc_dec:
                 pc = xs["pc"]
                 hn2 = L.rms_norm(h, pc["norm"].to(h.dtype), cfg.norm_eps)
-                q = _heads(torch.matmul(hn2, pc["wq"].to(h.dtype)),
-                           cfg.n_heads, hd)
+                q = project(hn2, pc["wq"], cfg.n_heads, hd, mesh)
                 o = L.decode_attention(q, xs["cross_k"], xs["cross_v"],
-                                       cfg.enc_frames)
-                h = h + torch.matmul(_unheads(o), pc["wo"].to(h.dtype))
+                                       cfg.enc_frames, mesh)
+                h = h + out_project(o, pc["wo"], mesh)
                 outs.update(cross_k=xs["cross_k"], cross_v=xs["cross_v"])
             hn2 = L.rms_norm(h, p["mlp_norm"].to(h.dtype), cfg.norm_eps)
-            h = h + ffn_sublayer(cfg, p, hn2)
+            h = h + ffn_sublayer(cfg, p, hn2, mesh)
         return h, outs
 
     xs: dict = {"p": params["blocks"]}
@@ -164,7 +182,8 @@ def decode_step(cfg: ModelConfig, params, cache: dict, tokens,
     new_cache["pos"] = pos + 1
     new_cache.update(outs)
     x = L.rms_norm(x, params["final_norm"].to(compute_dtype), cfg.norm_eps)
-    return lm_logits(cfg, params, x[:, 0], compute_dtype), new_cache
+    return lm_logits(cfg, params, x[:, 0], compute_dtype, mesh, emb), \
+        new_cache
 
 
 # -- prefill ------------------------------------------------------------------
@@ -175,15 +194,29 @@ def prefill(cfg: ModelConfig, params, tokens, *, mesh=None,
     """Full-sequence forward building the cache; returns (last-token
     logits (B, V), cache). ``max_len`` reserves cache slots beyond S for
     subsequent decode steps."""
-    L._no_mesh(mesh)
+    with sh.plain_as_replicated(mesh):
+        logits, cache = _prefill(cfg, params, tokens, mesh, compute_dtype,
+                                 frames, max_len)
+    return logits, _lay_out_cache(mesh, cache)
+
+
+def _lay_out_cache(mesh, cache: dict) -> dict:
+    if mesh is None:
+        return cache
+    plan = sh.make_plan(mesh)
+    return sh.shard_tree(plan, cache, sh.cache_shardings(plan, cache))
+
+
+def _prefill(cfg, params, tokens, mesh, compute_dtype, frames, max_len):
     B, S = tokens.shape
     dev = tokens.device
     cache = init_cache(cfg, B, max_len or S, compute_dtype, dev)
-    x = params["embed"].to(compute_dtype)[tokens]
+    emb = embedding(params, compute_dtype, mesh)
+    x = embed_tokens(emb, tokens, mesh)
     enc = None
     if cfg.enc_dec:
         # encoder + cross K/V
-        enc = encode(cfg, params, frames, compute_dtype)
+        enc = encode(cfg, params, frames, compute_dtype, mesh=mesh)
         x = x + params["dec_pos"].to(compute_dtype)[None, :S]
 
     hd = cfg.head_dim_
@@ -195,40 +228,37 @@ def prefill(cfg: ModelConfig, params, tokens, *, mesh=None,
         outs = {}
         hn = L.rms_norm(h_in, p["attn_norm"].to(h_in.dtype), cfg.norm_eps)
         if cfg.family == "ssm":
-            y, _, _ = ssm_sublayer(cfg, p, hn)
+            y, _, _ = ssm_sublayer(cfg, p, hn, mesh=mesh)
             h = h_in + y
             outs["ssm_state"], outs["conv_state"] = _ssm_final_state(
-                cfg, p, hn)
+                cfg, p, hn, mesh)
         elif cfg.hybrid_parallel:
             a, (k, v) = attention_sublayer(cfg, p, hn, causal=True,
-                                           positions=positions)
-            s, _, _ = ssm_sublayer(cfg, p, hn)
+                                           positions=positions, mesh=mesh)
+            s, _, _ = ssm_sublayer(cfg, p, hn, mesh=mesh)
             h = h_in + 0.5 * (a + s)
             outs["ssm_state"], outs["conv_state"] = _ssm_final_state(
-                cfg, p, hn)
+                cfg, p, hn, mesh)
             outs["k"], outs["v"] = _ring(k, W), _ring(v, W)
             hn2 = L.rms_norm(h, p["mlp_norm"].to(h.dtype), cfg.norm_eps)
-            h = h + ffn_sublayer(cfg, p, hn2)
+            h = h + ffn_sublayer(cfg, p, hn2, mesh)
         else:
             a, (k, v) = attention_sublayer(cfg, p, hn, causal=True,
-                                           positions=positions)
+                                           positions=positions, mesh=mesh)
             h = h_in + a
             outs["k"], outs["v"] = _ring(k, W), _ring(v, W)
             if cfg.enc_dec:
                 pc = xs["pc"]
                 hn2 = L.rms_norm(h, pc["norm"].to(h.dtype), cfg.norm_eps)
-                cd = h.dtype
-                q = _heads(torch.matmul(hn2, pc["wq"].to(cd)),
-                           cfg.n_heads, hd)
-                ck = _heads(torch.matmul(enc, pc["wk"].to(cd)),
-                            cfg.n_heads, hd)
-                cv = _heads(torch.matmul(enc, pc["wv"].to(cd)),
-                            cfg.n_heads, hd)
+                n = cfg.n_heads
+                q = project(hn2, pc["wq"], n, hd, mesh)
+                ck = project(enc, pc["wk"], n, hd, mesh)
+                cv = project(enc, pc["wv"], n, hd, mesh)
                 o = L.blockwise_attention(q, ck, cv, causal=False)
-                h = h + torch.matmul(_unheads(o), pc["wo"].to(cd))
+                h = h + out_project(o, pc["wo"], mesh)
                 outs["cross_k"], outs["cross_v"] = ck, cv
             hn2 = L.rms_norm(h, p["mlp_norm"].to(h.dtype), cfg.norm_eps)
-            h = h + ffn_sublayer(cfg, p, hn2)
+            h = h + ffn_sublayer(cfg, p, hn2, mesh)
         return h, outs
 
     xs: dict = {"p": params["blocks"]}
@@ -238,7 +268,7 @@ def prefill(cfg: ModelConfig, params, tokens, *, mesh=None,
     cache.update(outs)
     cache["pos"] = torch.tensor(S, dtype=torch.int32, device=dev)
     x = L.rms_norm(x, params["final_norm"].to(compute_dtype), cfg.norm_eps)
-    return lm_logits(cfg, params, x[:, -1], compute_dtype), cache
+    return lm_logits(cfg, params, x[:, -1], compute_dtype, mesh, emb), cache
 
 
 def _ring(k, W):
@@ -247,7 +277,11 @@ def _ring(k, W):
     if W == S:
         return k
     if W > S:
-        return torch.nn.functional.pad(k, (0, 0, 0, W - S))
+        # a concatenation, not ``F.pad``: torch 2.11's DTensor gives a
+        # padded tensor one placement on a two-dim mesh
+        B, H, _, hd = k.shape
+        return torch.cat([k, torch.zeros((B, H, W - S, hd), dtype=k.dtype,
+                                         device=k.device)], dim=2)
     tail = k[:, :, S - W:]                       # positions S-W..S-1
     if S % W == 0:
         # position S-W+j lands on slot (S-W+j) % W = j: the tail is
@@ -259,21 +293,28 @@ def _ring(k, W):
     return out
 
 
-def _ssm_final_state(cfg: ModelConfig, p, hn):
-    """Exact final (ssm_state, conv_state) after a full-sequence prefill."""
-    cd = hn.dtype
+def _ssm_final_state(cfg: ModelConfig, p, hn, mesh=None):
+    """Exact final (ssm_state, conv_state) after a full-sequence prefill;
+    on a mesh, computed on each device's batch shard."""
+    zxbcdt = torch.matmul(hn, use_weight(mesh, p["ssm_in"], hn.dtype))
+    return sh.local_batch_map(
+        mesh, lambda *a: _final_state(cfg, *a), (zxbcdt,),
+        (p["conv_w"], p["dt_bias"], p["A_log"]))
+
+
+def _final_state(cfg: ModelConfig, zxbcdt, conv_w, dt_bias, A_log):
+    cd = zxbcdt.dtype
     H, P = cfg.n_ssm_heads, cfg.ssm_head_dim
     di, N = cfg.d_inner, cfg.ssm_state
-    zxbcdt = torch.matmul(hn, p["ssm_in"].to(cd))
     _, xin0, Bc0, Cc0, dt = _split_zxbcdt(cfg, zxbcdt)
     xbc = torch.cat([xin0, Bc0, Cc0], dim=-1)
     conv_state = xbc[:, -(cfg.conv_width - 1):].float()
-    xbc_c, _ = ssm_lib.causal_conv(xbc, p["conv_w"].to(cd))
+    xbc_c, _ = ssm_lib.causal_conv(xbc, conv_w.to(cd))
     xbc_c = torch.nn.functional.silu(xbc_c)
     xin, Bc, Cc = torch.split(xbc_c, [di, N, N], dim=-1)
-    dtv = torch.nn.functional.softplus(dt.float() + p["dt_bias"].float())
-    b, s = hn.shape[:2]
-    a = -torch.exp(p["A_log"].float())
+    dtv = torch.nn.functional.softplus(dt.float() + dt_bias.float())
+    b, s = zxbcdt.shape[:2]
+    a = -torch.exp(A_log.float())
     da = dtv * a                                  # (b,s,H)
     # final state = Σ_t exp(Σ_{u>t} da_u) dt_t B_t ⊗ x_t
     rev_cum = torch.flip(torch.cumsum(torch.flip(da, [1]), dim=1), [1]) - da

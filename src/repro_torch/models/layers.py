@@ -9,9 +9,11 @@ function on the card. Products run in float32 on the operands as given
 (bf16 operands are exact in float32), as the reference asks with
 ``preferred_element_type=float32``.
 
-Layouts: activations (B, S, D); attention heads (B, H, S, hd). The
-reference shards along a device mesh; the port has none yet, so every
-``mesh`` argument must be None.
+Layouts: activations (B, S, D); attention heads (B, H, S, hd).
+``decode_attention`` takes the model's ``mesh`` (a ``DeviceMesh``, or
+None) and pins its layouts where the reference pins them;
+``use_weight`` (the reference's ``model.use_weight``) lays a weight out
+at use.
 """
 
 from __future__ import annotations
@@ -21,13 +23,22 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.parallel import sharding as sh
+
 NEG_INF = -1e30
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError("sharding over a device mesh is not "
-                                  "ported: pass mesh=None")
+def use_weight(mesh, w, cd, axes=None):
+    """FSDP all-gather at use: ``w`` cast to the compute dtype first, so
+    the gather moves ``cd`` bytes, then laid out as ``axes`` (the FSDP
+    axis gathered, the TP axis kept; None: whole on every device).
+    Without this the layout of a product would be left to propagation,
+    which may replicate the activations over the data axis instead of
+    gathering the much smaller weight shard. Without a mesh, the cast."""
+    w = w.to(cd)
+    if mesh is None:
+        return w
+    return sh.constrain(mesh, w, (None,) * w.dim() if axes is None else axes)
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
@@ -163,19 +174,26 @@ def sliding_window_attention(q, k, v, *, window: int) -> torch.Tensor:
 
 def decode_attention(q, k_cache, v_cache, pos, mesh=None) -> torch.Tensor:
     """Single-token decode: q (B, H, 1, hd) against cache (B, Hkv, S, hd),
-    masked to positions ≤ pos. ``mesh`` must be None (the reference's
-    flash-decode sharding is not ported)."""
-    _no_mesh(mesh)
+    masked to positions ≤ pos.
+
+    On a mesh the cache is sequence-sharded over the model axis and the
+    scores are kept so; the query heads are replicated (resharding the
+    cache from S to H would move it whole every step), and the output is
+    batch over DP."""
     B, H, _, hd = q.shape
     Hkv, S = k_cache.shape[1], k_cache.shape[2]
+    dp = None if mesh is None else sh.dp_axes_of(mesh)
+    q = sh.constrain(mesh, q, (dp, None, None, None))
     k_cache = repeat_kv(k_cache, H // Hkv)
     v_cache = repeat_kv(v_cache, H // Hkv)
-    s = _mm32("bhd,bhtd->bht", q[:, :, 0], k_cache)
+    s = sh.constrain(mesh, _mm32("bhd,bhtd->bht", q[:, :, 0], k_cache),
+                     (dp, None, "model"))
     s = s / math.sqrt(hd)
     valid = torch.arange(S, device=q.device) <= pos
     s = torch.where(valid[None, None], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    out = _mm32("bht,bhtd->bhd", p.to(v_cache.dtype), v_cache)
+    out = sh.constrain(mesh, _mm32("bht,bhtd->bhd", p.to(v_cache.dtype),
+                                   v_cache), (dp, None, None))
     return out[:, :, None].to(q.dtype)
 
 

@@ -16,9 +16,17 @@ each block: every layer of the forward, the encoder and the decoder runs
 under ``torch.utils.checkpoint`` (non-reentrant), which keeps only the
 layer's input for the backward pass and recomputes the rest — but only
 when grad is enabled and some parameter of the stack requires grad, so
-serving (whose parameters require none) runs the plain loop. The
-reference shards along a device mesh; the port has none, so every
-``mesh`` argument must be None.
+serving (whose parameters require none) runs the plain loop.
+
+``mesh`` (a ``torch.distributed`` ``DeviceMesh``, or None) lays the
+step over a device mesh as the reference's ``mesh`` does: the tensors are
+DTensors, and each point where the reference calls
+``with_sharding_constraint`` redistributes to the same layout
+(``parallel/sharding.constrain``) — the weights at use (``use_weight``),
+the projections and attention heads, the residual stream (sequence
+parallel where ``cfg.seq_parallel``), the embedding and the logits.
+Between those points DTensor's op propagation picks each op's layout and
+issues the collectives.
 """
 
 from __future__ import annotations
@@ -33,6 +41,8 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import use_weight
+from repro_torch.parallel import sharding as sh
 
 
 def tree_index(tree, i: int):
@@ -204,9 +214,58 @@ def init_params(cfg: ModelConfig, gen: torch.Generator,
 
 # -- attention sublayer -------------------------------------------------------
 
+def embedding(params, compute_dtype, mesh=None):
+    """The embedding table cast for compute; on a mesh gathered over the
+    FSDP axis at use and kept vocab-parallel over TP — transposed, the
+    tied head's layout, so one gather serves both."""
+    return use_weight(mesh, params["embed"], compute_dtype, ("model", None))
+
+
+def embed_tokens(emb, tokens, mesh=None):
+    """Rows ``tokens`` of the table ``emb`` (``embedding``); on a mesh
+    batch over DP. Each device looks up the ids of its batch shard that
+    fall in its vocab rows, zeros elsewhere, and a sum over the model
+    axis completes every row (a vocab-parallel lookup)."""
+    if mesh is None:
+        return F.embedding(tokens, emb)
+    dp = sh.dp_axes_of(mesh)
+    tokens = sh.constrain(mesh, tokens, (dp,) + (None,) * (tokens.dim() - 1))
+    tp = mesh.mesh_dim_names.index("model")
+    # the gradient of this device's rows sums over the batch shards
+    rows = emb.to_local(grad_placements=[
+        sh.Partial() if t.is_shard() else e
+        for t, e in zip(tokens.placements, emb.placements)])
+    split = emb.placements[tp].is_shard()
+    lo = sh.local_range(mesh, "model", emb.shape[0])[0] if split else 0
+    ids = tokens.to_local().long() - lo
+    mine = (ids >= 0) & (ids < rows.shape[0])
+    x = F.embedding(torch.where(mine, ids, 0), rows) \
+        * mine[..., None].to(rows.dtype)
+    x = sh.from_partial(x, mesh, [sh.Partial() if i == tp and split else pl
+                                  for i, pl in enumerate(tokens.placements)])
+    return sh.constrain(mesh, x, (dp, None, None))
+
+
+class _DenseGrad(torch.autograd.Function):
+    """The identity, whose backward makes the gradient contiguous. The
+    backward of an einsum can hand back a DTensor gradient with permuted
+    strides, and DTensor then takes the backward of the head reshape as
+    a view those strides do not allow (torch 2.13, whisper's attention);
+    a contiguous gradient takes the copy."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
 def _heads(x, n, hd):
     b, s, _ = x.shape
-    return x.reshape(b, s, n, hd).transpose(1, 2)       # (B,n,S,hd)
+    x = x.reshape(b, s, n, hd).transpose(1, 2)          # (B,n,S,hd)
+    return _DenseGrad.apply(x) if isinstance(x, sh.DTensor) else x
 
 
 def _unheads(x):
@@ -214,19 +273,35 @@ def _unheads(x):
     return x.transpose(1, 2).reshape(b, s, n * hd)
 
 
+def project(x, w, n: int, hd: int, mesh=None):
+    """``x`` (B, S, D) times ``w`` as ``n`` heads (B, n, S, hd). On a mesh
+    the weight is gathered at use with its columns over TP, and the flat
+    (B, S, n·hd) product is pinned (batch over DP, columns over TP)
+    before the head reshape: GQA kv widths below the TP degree would
+    otherwise leave its layout to propagation."""
+    y = torch.matmul(x, use_weight(mesh, w, x.dtype, (None, "model")))
+    if mesh is not None:
+        y = sh.constrain(mesh, y, (sh.dp_axes_of(mesh), None, "model"))
+    return _heads(y, n, hd)
+
+
+def out_project(o, w, mesh=None):
+    """Heads ``o`` (B, H, S, hd) back to (B, S, D) through ``w``, its rows
+    over TP at use (the product sums over the model axis)."""
+    return torch.matmul(_unheads(o), use_weight(mesh, w, o.dtype,
+                                                ("model", None)))
+
+
 def attention_sublayer(cfg: ModelConfig, p, x, *, causal: bool,
                        positions, mesh=None):
     """Returns (out, (k, v)) — k/v in (B, Hkv, S, hd) post-RoPE layout."""
-    L._no_mesh(mesh)
     hd = cfg.head_dim_
     cd = x.dtype
-
-    def proj(w, n):
-        return _heads(torch.matmul(x, w.to(cd)), n, hd)
-
-    q = proj(p["wq"], cfg.n_heads)
-    k = proj(p["wk"], cfg.n_kv_heads)
-    v = proj(p["wv"], cfg.n_kv_heads)
+    q = sh.head_constraint(mesh, project(x, p["wq"], cfg.n_heads, hd, mesh))
+    k = sh.head_constraint(mesh, project(x, p["wk"], cfg.n_kv_heads, hd,
+                                         mesh))
+    v = sh.head_constraint(mesh, project(x, p["wv"], cfg.n_kv_heads, hd,
+                                         mesh))
     if cfg.qk_norm:
         q = L.rms_norm(q, p["q_norm"].to(cd), cfg.norm_eps)
         k = L.rms_norm(k, p["k_norm"].to(cd), cfg.norm_eps)
@@ -239,8 +314,7 @@ def attention_sublayer(cfg: ModelConfig, p, x, *, causal: bool,
         o = L.sliding_window_attention(q, k, v, window=cfg.sliding_window)
     else:
         o = L.blockwise_attention(q, k, v, causal=causal)
-    out = torch.matmul(_unheads(o), p["wo"].to(cd))
-    return out, (k, v)
+    return out_project(o, p["wo"], mesh), (k, v)
 
 
 def _split_zxbcdt(cfg: ModelConfig, zxbcdt):
@@ -248,41 +322,72 @@ def _split_zxbcdt(cfg: ModelConfig, zxbcdt):
     return torch.split(zxbcdt, [di, di, N, N, H], dim=-1)
 
 
+_MIXER_PARAMS = ("conv_w", "dt_bias", "A_log", "ssm_norm")
+
+
 def ssm_sublayer(cfg: ModelConfig, p, x, conv_state=None, ssm_state=None,
                  *, decode: bool = False, mesh=None):
-    """Mamba2 mixer. x: (B, S, D) (S=1 when decoding)."""
-    L._no_mesh(mesh)
+    """Mamba2 mixer. x: (B, S, D) (S=1 when decoding). On a mesh it is
+    TP-free, as the reference's: its projections are gathered whole at
+    use, and everything between them (the convolution, the SSD scan or
+    the decode recurrence, the gated norm) runs on each device's batch
+    shard (``sharding.local_batch_map``), the sequence gathered where
+    sequence parallelism split it."""
     cd = x.dtype
+    zxbcdt = torch.matmul(x, use_weight(mesh, p["ssm_in"], cd))
+    shared = [p[k] for k in _MIXER_PARAMS]
+    if decode:
+        y, new_conv, new_state = sh.local_batch_map(
+            mesh, lambda *a: _mixer_decode(cfg, *a),
+            (zxbcdt, conv_state, ssm_state), shared)
+        return torch.matmul(y, use_weight(mesh, p["ssm_out"], cd)), \
+            new_conv, new_state
+    y = sh.local_batch_map(mesh, lambda *a: _mixer(cfg, *a), (zxbcdt,),
+                           shared)
+    return torch.matmul(y, use_weight(mesh, p["ssm_out"], cd)), None, None
+
+
+def _mixer_decode(cfg: ModelConfig, zxbcdt, conv_state, ssm_state, conv_w,
+                  dt_bias, A_log, ssm_norm):
+    """One token of the mixer between its projections: (y, new conv
+    state, new SSM state)."""
+    cd = zxbcdt.dtype
     di, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads, \
         cfg.ssm_head_dim
-    zxbcdt = torch.matmul(x, p["ssm_in"].to(cd))
     z, xin, Bc, Cc, dt = _split_zxbcdt(cfg, zxbcdt)
     xbc = torch.cat([xin, Bc, Cc], dim=-1)
-    if decode:
-        new_conv = torch.cat([conv_state[:, 1:], xbc.float()], dim=1)
-        xbc_tap = torch.cat([conv_state.to(cd), xbc], dim=1)
-        y = torch.zeros_like(xbc)
-        for i in range(cfg.conv_width):
-            y = y + xbc_tap[:, i:i + 1] * p["conv_w"][i].to(cd)
-        xbc = F.silu(y)
-        xin, Bc, Cc = torch.split(xbc, [di, N, N], dim=-1)
-        dtv = F.softplus(dt[:, 0].float() + p["dt_bias"].float())
-        xh = xin[:, 0].reshape(-1, H, P)
-        yh, new_state = ssm_lib.ssd_decode_step(
-            ssm_state, xh, dtv, p["A_log"], Bc[:, 0], Cc[:, 0])
-        y = yh.reshape(xh.shape[0], 1, di).to(cd)
-        y = L.rms_norm(y * F.silu(z), p["ssm_norm"].to(cd), cfg.norm_eps)
-        return torch.matmul(y, p["ssm_out"].to(cd)), new_conv, new_state
-    xbc, _ = ssm_lib.causal_conv(xbc, p["conv_w"].to(cd))
+    new_conv = torch.cat([conv_state[:, 1:], xbc.float()], dim=1)
+    xbc_tap = torch.cat([conv_state.to(cd), xbc], dim=1)
+    y = torch.zeros_like(xbc)
+    for i in range(cfg.conv_width):
+        y = y + xbc_tap[:, i:i + 1] * conv_w[i].to(cd)
+    xbc = F.silu(y)
+    xin, Bc, Cc = torch.split(xbc, [di, N, N], dim=-1)
+    dtv = F.softplus(dt[:, 0].float() + dt_bias.float())
+    xh = xin[:, 0].reshape(-1, H, P)
+    yh, new_state = ssm_lib.ssd_decode_step(
+        ssm_state, xh, dtv, A_log, Bc[:, 0], Cc[:, 0])
+    y = yh.reshape(xh.shape[0], 1, di).to(cd)
+    y = L.rms_norm(y * F.silu(z), ssm_norm.to(cd), cfg.norm_eps)
+    return y, new_conv, new_state
+
+
+def _mixer(cfg: ModelConfig, zxbcdt, conv_w, dt_bias, A_log, ssm_norm):
+    """The mixer between its projections over a full sequence."""
+    cd = zxbcdt.dtype
+    di, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads, \
+        cfg.ssm_head_dim
+    z, xin, Bc, Cc, dt = _split_zxbcdt(cfg, zxbcdt)
+    xbc = torch.cat([xin, Bc, Cc], dim=-1)
+    xbc, _ = ssm_lib.causal_conv(xbc, conv_w.to(cd))
     xbc = F.silu(xbc)
     xin, Bc, Cc = torch.split(xbc, [di, N, N], dim=-1)
-    dtv = F.softplus(dt.float() + p["dt_bias"].float())
-    b, s = x.shape[:2]
-    yh = ssm_lib.ssd_chunked(xin.reshape(b, s, H, P), dtv, p["A_log"],
-                             Bc, Cc, chunk=cfg.ssm_chunk)
+    dtv = F.softplus(dt.float() + dt_bias.float())
+    b, s = zxbcdt.shape[:2]
+    yh = ssm_lib.ssd_chunked(xin.reshape(b, s, H, P), dtv, A_log, Bc, Cc,
+                             chunk=cfg.ssm_chunk)
     y = yh.reshape(b, s, di)
-    y = L.rms_norm(y * F.silu(z), p["ssm_norm"].to(cd), cfg.norm_eps)
-    return torch.matmul(y, p["ssm_out"].to(cd)), None, None
+    return L.rms_norm(y * F.silu(z), ssm_norm.to(cd), cfg.norm_eps)
 
 
 def ffn_sublayer(cfg: ModelConfig, p, x, mesh=None):
@@ -294,9 +399,10 @@ def ffn_sublayer(cfg: ModelConfig, p, x, mesh=None):
             top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
             activation=cfg.activation, mesh=mesh)
         return y.reshape(b, s, d)
-    L._no_mesh(mesh)
-    return L.mlp(x, {k: p[k].to(x.dtype) for k in ("w1", "w2", "w3")
-                     if k in p}, cfg.activation)
+    ax = {"w1": (None, "model"), "w3": (None, "model"),
+          "w2": ("model", None)}
+    return L.mlp(x, {k: use_weight(mesh, p[k], x.dtype, ax[k])
+                     for k in ("w1", "w2", "w3") if k in p}, cfg.activation)
 
 
 # -- full-sequence block ------------------------------------------------------
@@ -304,30 +410,39 @@ def ffn_sublayer(cfg: ModelConfig, p, x, mesh=None):
 def make_block_fn(cfg: ModelConfig, *, causal: bool, mesh=None):
     """One block (layer) over a full sequence: ``block(x, p) -> (x,
     None)``, the layer loop's step."""
-    L._no_mesh(mesh)
+    def seq_shard(h):
+        # the residual stream's layout is pinned at each block's ends:
+        # left to propagation, the embedding's layout would travel
+        # through the stack
+        if mesh is None:
+            return h
+        dp = sh.dp_axes_of(mesh)
+        return sh.constrain(mesh, h, (dp, "model", None) if cfg.seq_parallel
+                            else (dp, None, None))
 
     def block(x, p):
+        x = seq_shard(x)
         positions = torch.arange(x.shape[1], device=x.device)
         if cfg.family == "ssm":
             h = L.rms_norm(x, p["attn_norm"].to(x.dtype), cfg.norm_eps)
-            y, _, _ = ssm_sublayer(cfg, p, h)
+            y, _, _ = ssm_sublayer(cfg, p, h, mesh=mesh)
             x = x + y
         elif cfg.hybrid_parallel:
             h = L.rms_norm(x, p["attn_norm"].to(x.dtype), cfg.norm_eps)
             a, _ = attention_sublayer(cfg, p, h, causal=causal,
-                                      positions=positions)
-            s, _, _ = ssm_sublayer(cfg, p, h)
+                                      positions=positions, mesh=mesh)
+            s, _, _ = ssm_sublayer(cfg, p, h, mesh=mesh)
             x = x + 0.5 * (a + s)
             h = L.rms_norm(x, p["mlp_norm"].to(x.dtype), cfg.norm_eps)
-            x = x + ffn_sublayer(cfg, p, h)
+            x = x + ffn_sublayer(cfg, p, h, mesh)
         else:
             h = L.rms_norm(x, p["attn_norm"].to(x.dtype), cfg.norm_eps)
             a, _ = attention_sublayer(cfg, p, h, causal=causal,
-                                      positions=positions)
+                                      positions=positions, mesh=mesh)
             x = x + a
             h = L.rms_norm(x, p["mlp_norm"].to(x.dtype), cfg.norm_eps)
-            x = x + ffn_sublayer(cfg, p, h)
-        return x, None
+            x = x + ffn_sublayer(cfg, p, h, mesh)
+        return seq_shard(x), None
     return block
 
 
@@ -336,24 +451,36 @@ def forward(cfg: ModelConfig, params, tokens, *, mesh=None,
             frames=None, scan_layers: bool = True):
     """Token ids (B, S) → logits (B, S, V). For enc-dec models ``frames``
     (B, enc_frames, D) are the stubbed modality-frontend embeddings."""
-    L._no_mesh(mesh)
-    if cfg.enc_dec:
-        return _whisper_forward(cfg, params, tokens, frames, compute_dtype,
-                                remat)
-    x = params["embed"].to(compute_dtype)[tokens]
-    x = _layer_loop(make_block_fn(cfg, causal=True), x, params["blocks"],
-                    cfg.n_layers, remat)
-    x = L.rms_norm(x, params["final_norm"].to(compute_dtype), cfg.norm_eps)
-    return lm_logits(cfg, params, x, compute_dtype)
+    with sh.plain_as_replicated(mesh):
+        emb = embedding(params, compute_dtype, mesh)
+        x = embed_tokens(emb, tokens, mesh)
+        if cfg.enc_dec:
+            return _whisper_forward(cfg, params, x, frames, compute_dtype,
+                                    remat, mesh)
+        x = _layer_loop(make_block_fn(cfg, causal=True, mesh=mesh), x,
+                        params["blocks"], cfg.n_layers, remat)
+        x = L.rms_norm(x, params["final_norm"].to(compute_dtype),
+                       cfg.norm_eps)
+        return lm_logits(cfg, params, x, compute_dtype, mesh, emb)
 
 
-def lm_logits(cfg, params, x, compute_dtype, mesh=None):
+def lm_logits(cfg, params, x, compute_dtype, mesh=None, emb=None):
     """Final projection (tied embedding or ``lm_head``); the padded vocab
-    rows are masked to -1e30."""
-    L._no_mesh(mesh)
-    head = (params["embed"].T if cfg.tie_embeddings
-            else params["lm_head"]).to(compute_dtype)
+    rows are masked to -1e30. ``emb``: the table ``embedding`` gave, for
+    a tied head. On a mesh the head is laid out (D whole, vocab over TP)
+    and so are the logits (batch over DP, vocab over TP): left to
+    propagation, the tied product could replicate the (B, S, V)
+    logits."""
+    if cfg.tie_embeddings:
+        head = (embedding(params, compute_dtype, mesh) if emb is None
+                else emb).T
+    else:
+        head = use_weight(mesh, params["lm_head"], compute_dtype,
+                          (None, "model"))
     logits = torch.matmul(x, head)
+    if mesh is not None:
+        logits = sh.constrain(mesh, logits, (sh.dp_axes_of(mesh),)
+                              + (None,) * (x.dim() - 2) + ("model",))
     if cfg.padded_vocab != cfg.vocab:
         pad = torch.arange(logits.shape[-1], device=logits.device) \
             >= cfg.vocab
@@ -365,47 +492,56 @@ def lm_logits(cfg, params, x, compute_dtype, mesh=None):
 
 # -- whisper (enc-dec) --------------------------------------------------------
 
+def _pin(mesh, h):
+    """The residual stream's layout, batch over DP (a mesh), for both of
+    whisper's stacks."""
+    if mesh is None:
+        return h
+    return sh.constrain(mesh, h, (sh.dp_axes_of(mesh), None, None))
+
+
 def encode(cfg: ModelConfig, params, frames, compute_dtype,
-           remat: bool = False):
+           remat: bool = False, mesh=None):
     """The encoder stack over the stubbed frame embeddings."""
-    enc = frames.to(compute_dtype) \
-        + params["enc_pos"].to(compute_dtype)[None]
+    enc = _pin(mesh, frames.to(compute_dtype)
+               + params["enc_pos"].to(compute_dtype)[None])
     enc_block = make_block_fn(
         dataclasses.replace(cfg, family="dense", enc_dec=False,
-                            n_kv_heads=cfg.n_heads), causal=False)
+                            n_kv_heads=cfg.n_heads), causal=False, mesh=mesh)
     enc = _layer_loop(enc_block, enc, params["enc_blocks"], cfg.enc_layers,
                       remat)
-    return L.rms_norm(enc, params["enc_norm"].to(compute_dtype),
-                      cfg.norm_eps)
+    return _pin(mesh, L.rms_norm(enc, params["enc_norm"].to(compute_dtype),
+                                 cfg.norm_eps))
 
 
-def _whisper_forward(cfg, params, tokens, frames, compute_dtype, remat):
-    enc = encode(cfg, params, frames, compute_dtype, remat)
-    S = tokens.shape[1]
-    x = params["embed"].to(compute_dtype)[tokens] \
-        + params["dec_pos"].to(compute_dtype)[None, :S]
+def _whisper_forward(cfg, params, x, frames, compute_dtype, remat, mesh):
+    """Whisper's logits from the decoder's token embeddings ``x``."""
+    enc = encode(cfg, params, frames, compute_dtype, remat, mesh)
+    S = x.shape[1]
+    x = _pin(mesh, x + params["dec_pos"].to(compute_dtype)[None, :S])
     dec_cfg = dataclasses.replace(cfg, enc_dec=False,
                                   n_kv_heads=cfg.n_heads)
     hd = cfg.head_dim_
 
     def dec_block(x, ps):
         p, pc = ps
+        x = _pin(mesh, x)
         positions = torch.arange(x.shape[1], device=x.device)
         h = L.rms_norm(x, p["attn_norm"].to(x.dtype), cfg.norm_eps)
         a, _ = attention_sublayer(dec_cfg, p, h, causal=True,
-                                  positions=positions)
+                                  positions=positions, mesh=mesh)
         x = x + a
         h = L.rms_norm(x, pc["norm"].to(x.dtype), cfg.norm_eps)
-        cd = x.dtype
-        q = _heads(torch.matmul(h, pc["wq"].to(cd)), cfg.n_heads, hd)
-        k = _heads(torch.matmul(enc, pc["wk"].to(cd)), cfg.n_heads, hd)
-        v = _heads(torch.matmul(enc, pc["wv"].to(cd)), cfg.n_heads, hd)
-        o = L.blockwise_attention(q, k, v, causal=False)
-        x = x + torch.matmul(_unheads(o), pc["wo"].to(cd))
+        n = cfg.n_heads
+        o = L.blockwise_attention(project(h, pc["wq"], n, hd, mesh),
+                                  project(enc, pc["wk"], n, hd, mesh),
+                                  project(enc, pc["wv"], n, hd, mesh),
+                                  causal=False)
+        x = x + out_project(o, pc["wo"], mesh)
         h = L.rms_norm(x, p["mlp_norm"].to(x.dtype), cfg.norm_eps)
-        x = x + ffn_sublayer(dec_cfg, p, h)
-        return x, None
+        x = x + ffn_sublayer(dec_cfg, p, h, mesh)
+        return _pin(mesh, x), None
     x = _layer_loop(dec_block, x, (params["blocks"], params["cross"]),
                     cfg.n_layers, remat)
     x = L.rms_norm(x, params["final_norm"].to(compute_dtype), cfg.norm_eps)
-    return lm_logits(cfg, params, x, compute_dtype)
+    return lm_logits(cfg, params, x, compute_dtype, mesh)

@@ -2,6 +2,16 @@
 port of ``repro.models.steps``: the loss, the train step (gradients by
 ``torch.autograd``, optional gradient accumulation, the AdamW update in
 place), the prefill step and the serve step.
+
+With ``mesh`` (a ``DeviceMesh``) each step runs over the mesh, as the
+reference's steps jitted with ``in_shardings`` / ``out_shardings`` do:
+its parameter, optimizer-state, batch and cache arguments are DTensors
+laid out by the rule tables (``parallel/sharding.shard_tree`` with
+``param_shardings`` and the rest), the gradients come back with their
+parameters' placements, and the prefill and serve steps return the cache
+laid out by ``cache_shardings`` (``models/decode.py``). The loss,
+``grad_norm`` and logits come back whole on every device, plain
+tensors.
 """
 
 from __future__ import annotations
@@ -13,6 +23,7 @@ import torch
 from repro_torch.models import decode as decode_lib
 from repro_torch.models import model as model_lib
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel import sharding as sh
 from repro_torch.tree import leaves
 
 if TYPE_CHECKING:       # the serving path loads no optimizer
@@ -20,8 +31,11 @@ if TYPE_CHECKING:       # the serving path loads no optimizer
 
 
 def softmax_xent(logits, labels):
-    """Cross entropy in float32. The gold logit is a masked sum over a
-    compare against the vocab index, as the reference takes it."""
+    """Cross entropy in float32 over a (possibly vocab-sharded) logits
+    tensor. The gold logit is a masked sum over a compare against the
+    vocab index, as the reference takes it: under a vocab-sharded layout
+    a gather would move the full vocab, the compare and sum reduce
+    (B, S) partial sums."""
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     V = logits.shape[-1]
@@ -37,6 +51,9 @@ def make_loss_fn(cfg: ModelConfig, *, mesh=None, remat=True,
             cfg, params, batch["tokens"], mesh=mesh, remat=remat,
             compute_dtype=compute_dtype, frames=batch.get("frames"),
             scan_layers=scan_layers)
+        if mesh is not None:
+            logits = sh.constrain(mesh, logits,
+                                  (sh.dp_axes_of(mesh), None, "model"))
         return softmax_xent(logits, batch["labels"])
     return loss_fn
 
@@ -54,18 +71,40 @@ def make_grad_fn(cfg: ModelConfig, *, mesh=None, remat=True,
     that many microbatches, as the reference's reshape does, sums their
     float32 gradients in microbatch order into one extra float32 buffer
     a leaf, and divides the summed loss and gradients by
-    ``accum_steps``."""
+    ``accum_steps``.
+
+    On a mesh the loss comes back whole on every device and each
+    gradient is a DTensor with its parameter's placements (the backward
+    of each weight's gather at use reduce-scatters its gradient); each
+    microbatch is laid out as ``batch_shardings`` lays a batch."""
     loss_fn = make_loss_fn(cfg, mesh=mesh, remat=remat,
                            compute_dtype=compute_dtype,
                            scan_layers=scan_layers)
 
     def value_and_grad(params, flat_p, batch):
-        loss = loss_fn(params, batch)
-        grads = torch.autograd.grad(loss, flat_p, allow_unused=True)
+        # the backward pass too meets plain masks saved by the forward
+        with sh.plain_as_replicated(mesh):
+            loss = loss_fn(params, batch)
+            if mesh is not None:
+                loss = loss.full_tensor()
+            grads = torch.autograd.grad(loss, flat_p, allow_unused=True)
         # a leaf the loss does not read (an SSM block's ``mlp_norm``) has
         # a zero gradient, as JAX gives it
-        return loss.detach(), [torch.zeros_like(p) if g is None else g
+        return loss.detach(), [torch.zeros_like(p) if g is None
+                               else sh.like(g, p)
                                for p, g in zip(flat_p, grads)]
+
+    def microbatch(batch, i):
+        if mesh is None:
+            return {k: v.reshape((accum_steps, v.shape[0] // accum_steps)
+                                 + tuple(v.shape[1:]))[i]
+                    for k, v in batch.items()}
+        # the token ids, gathered (a few KB), cut, and laid out again
+        whole = sh.gather_tree(batch)
+        n = next(iter(whole.values())).shape[0] // accum_steps
+        part = {k: v[i * n:(i + 1) * n] for k, v in whole.items()}
+        plan = sh.make_plan(mesh)
+        return sh.shard_tree(plan, part, sh.batch_shardings(plan, part))
 
     def grad_fn(params, batch):
         flat_p = leaves(params)
@@ -74,16 +113,13 @@ def make_grad_fn(cfg: ModelConfig, *, mesh=None, remat=True,
         try:
             if accum_steps == 1:
                 return value_and_grad(params, flat_p, batch)
-            micro = {k: v.reshape((accum_steps, v.shape[0] // accum_steps)
-                                  + tuple(v.shape[1:]))
-                     for k, v in batch.items()}
             loss = torch.zeros((), dtype=torch.float32,
                                device=flat_p[0].device)
-            grads = [torch.zeros(p.shape, dtype=torch.float32,
-                                 device=p.device) for p in flat_p]
+            grads = [torch.zeros_like(p, dtype=torch.float32)
+                     for p in flat_p]
             for i in range(accum_steps):
-                l, g = value_and_grad(
-                    params, flat_p, {k: v[i] for k, v in micro.items()})
+                l, g = value_and_grad(params, flat_p,
+                                      microbatch(batch, i))
                 loss = loss + l
                 for acc, gi in zip(grads, g):
                     acc.add_(gi.float())
@@ -120,10 +156,11 @@ def make_train_step(cfg: ModelConfig, optimizer: AdamW, *, mesh=None,
 def make_prefill_step(cfg: ModelConfig, *, mesh=None,
                       compute_dtype=torch.bfloat16, scan_layers=True):
     def prefill_step(params, batch):
-        return decode_lib.prefill(cfg, params, batch["tokens"], mesh=mesh,
-                                  compute_dtype=compute_dtype,
-                                  frames=batch.get("frames"),
-                                  scan_layers=scan_layers)
+        logits, cache = decode_lib.prefill(
+            cfg, params, batch["tokens"], mesh=mesh,
+            compute_dtype=compute_dtype, frames=batch.get("frames"),
+            scan_layers=scan_layers)
+        return sh.gather_tree(logits), cache
     return prefill_step
 
 
@@ -133,5 +170,6 @@ def make_serve_step(cfg: ModelConfig, *, mesh=None,
         logits, cache = decode_lib.decode_step(
             cfg, params, cache, tokens, mesh=mesh,
             compute_dtype=compute_dtype, scan_layers=scan_layers)
+        logits = sh.gather_tree(logits)
         return torch.argmax(logits, dim=-1).to(torch.int32), logits, cache
     return serve_step

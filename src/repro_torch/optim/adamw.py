@@ -18,6 +18,13 @@ top of the 40.5 GB of float32 parameters, gradients and moments; in
 place, the update adds one temporary of its largest leaf. Parameters
 must therefore be leaf tensors, and a caller that wants the state from
 before a step clones it first.
+
+Over a device mesh the parameters are DTensors (``models/steps.py``):
+``init`` gives each moment its parameter's placements and the step
+counter is replicated (the reference's ``opt_state_shardings``), the
+update runs on each device's shards in place, and the global gradient
+norm is one reduction of the per-device partial sums of squares, each
+replicated shard counted once (``global_norm``).
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ import math
 from typing import Callable
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate
 
 from repro_torch.tree import leaves, tree_map
 
@@ -58,15 +66,20 @@ class AdamW:
     state_dtype: torch.dtype = torch.float32
 
     def init(self, params):
-        """Zero moments shaped as ``params`` (on their devices, ``meta``
-        included) and a 0-d int32 step counter."""
+        """Zero moments shaped and laid out as ``params`` (on their
+        devices, ``meta`` included; a DTensor's with its placements) and a
+        0-d int32 step counter, replicated over the parameters' mesh."""
         def zeros(p):
-            return torch.zeros(p.shape, dtype=self.state_dtype,
-                               device=p.device)
+            return torch.zeros_like(p, dtype=self.state_dtype)
         flat = leaves(params)
         device = flat[0].device if flat else None
+        step = torch.zeros((), dtype=torch.int32, device=device)
+        if flat and isinstance(flat[0], DTensor):
+            mesh = flat[0].device_mesh
+            step = DTensor.from_local(step, mesh,
+                                      [Replicate()] * mesh.ndim)
         return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
-                "step": torch.zeros((), dtype=torch.int32, device=device)}
+                "step": step}
 
     def update(self, grads, state, params):
         """``(params, state, grad_norm)``: the reference's update, with
@@ -88,16 +101,19 @@ class AdamW:
             raise ValueError("gradients, parameters and moments differ in "
                              "structure")
         step = state["step"] + 1
-        gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                               for g in flat_g))
+        gnorm = global_norm(flat_g, flat_p)
         scale = torch.clamp(self.clip_norm / (gnorm + 1e-9), max=1.0)
-        lr = self.lr(step) if callable(self.lr) else self.lr
-        stepf = step.to(torch.float32)
+        local_step = _local(step)
+        lr = self.lr(local_step) if callable(self.lr) else self.lr
+        stepf = local_step.to(torch.float32)
         bc1 = 1 - torch.pow(self.b1, stepf)
         bc2 = 1 - torch.pow(self.b2, stepf)
         for i, (p, m, v) in enumerate(zip(flat_p, flat_m, flat_v)):
-            g = flat_g[i]
+            # each device updates its own shards: the moments and the
+            # gradient share the parameter's placements
+            g = _local(flat_g[i], p)
             flat_g[i] = None
+            p, m, v = _local(p), _local(m), _local(v)
             # an owned float32 gradient's buffer takes the scaled gradient
             # and then the step (nothing reads the gradient after this)
             g = g.mul_(scale) if own_grads and g.dtype == torch.float32 \
@@ -118,3 +134,36 @@ class AdamW:
         return params, {"m": state["m"], "v": state["v"], "step": step}, \
             gnorm
 
+
+
+def _local(x, like=None):
+    """A DTensor's shard on this device (in ``like``'s placements first,
+    where given), which in-place ops update; a plain tensor as it is."""
+    if not isinstance(x, DTensor):
+        return x
+    if like is not None and x.placements != like.placements:
+        x = x.redistribute(like.device_mesh, like.placements)
+    return x.to_local()
+
+
+def global_norm(flat_g: list, flat_p: list) -> torch.Tensor:
+    """sqrt(Σ g²) over every gradient leaf, summed leaf by leaf in the
+    reference's order. Over a mesh each device sums the squares of its
+    own shards, a shard that a mesh axis replicates counted only on that
+    axis's first device, and one global reduction of that one scalar
+    adds the partial sums (DTensor issues it as an all-reduce a mesh
+    dim)."""
+    if not flat_g or not isinstance(flat_g[0], DTensor):
+        return torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                              for g in flat_g))
+    mesh = flat_p[0].device_mesh
+    coord = mesh.get_coordinate()
+    total = torch.zeros((), dtype=torch.float32,
+                        device=flat_p[0].to_local().device)
+    for g, p in zip(flat_g, flat_p):
+        if any(c and not pl.is_shard() for c, pl in zip(coord, p.placements)):
+            continue
+        total = total + torch.sum(torch.square(_local(g, p).float()))
+    total = DTensor.from_local(total, mesh, [Partial()] * mesh.ndim,
+                               run_check=False)
+    return torch.sqrt(total.full_tensor())

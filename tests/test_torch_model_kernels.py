@@ -422,7 +422,8 @@ def test_decode_attention_matches_reference_and_needs_no_mesh():
     got = tlayers.decode_attention(_t(q), _t(kc), _t(vc), 13)
     want = jlayers.decode_attention(_j(q), _j(kc), _j(vc), 13)
     np.testing.assert_allclose(_np(got), _np(want), atol=2e-5, rtol=2e-5)
-    with pytest.raises(NotImplementedError):
+    # a mesh must be a DeviceMesh: any other object is refused
+    with pytest.raises(TypeError, match="needs a DeviceMesh"):
         tlayers.decode_attention(_t(q), _t(kc), _t(vc), 13, mesh=object())
 
 

@@ -186,6 +186,7 @@ def test_moe_ffn_router_tie_picks_reference_experts():
 
 
 def test_moe_ffn_rejects_a_mesh():
-    with pytest.raises(NotImplementedError):
+    # a mesh must be a DeviceMesh: any other object is refused
+    with pytest.raises(TypeError, match="needs a DeviceMesh"):
         tmoe.moe_ffn(torch.zeros((8, 4)), {"router": torch.zeros((4, 2))},
                      top_k=1, capacity_factor=1.0, mesh=object())

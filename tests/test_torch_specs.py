@@ -248,5 +248,6 @@ def test_constraints_are_the_identity_without_a_mesh():
     assert tsh.logits_constraint(None, x) is x
     mesh = tsh.AxisMesh({"data": 2, "model": 2})
     assert tsh.dp_axes_of(mesh) == ("data",)
-    with pytest.raises(ValueError, match="mesh must be None"):
+    # an AxisMesh names axes and has no devices to lay a tensor over
+    with pytest.raises(TypeError, match="needs a DeviceMesh"):
         tsh.constrain(mesh, x, ("data", None))
