@@ -90,11 +90,16 @@ DTensor: granite-3-2b whole served (batch 4, 64 prompt tokens, 31
 decode steps) and one full-width train step (8 × 128, remat) against
 the port without a mesh on the card, with both warm times and peak
 memory; the ten reduced configs' train, prefill and decode steps
-likewise; and, on a machine with four cards, the 2×2 (data, model)
-mesh over four processes against the one-card results (else it logs
-that it was not run). Exits nonzero on any failure. The last six lines
-are JSON: the model phase, the train phase, the dry run, the mesh
-phase, the kernel table, then ``{"ok": true, "device": ...}``. """
+likewise; a checkpoint round trip of the sharded training state at
+granite-3-2b reduced (saved leaf by leaf, restored, laid out again and
+stepped, bit for bit against the run that never stopped, its objects
+byte for byte the gathered state's, save and restore times beside the
+gathered state's); and, on a machine with four cards, the 2×2 (data,
+model) mesh over four processes against the one-card results, the
+round trip included (else it logs that it was not run). Exits nonzero
+on any failure. The last six lines are JSON: the model phase, the train
+phase, the dry run, the mesh phase, the kernel table, then
+``{"ok": true, "device": ...}``. """
 
 from __future__ import annotations
 
@@ -3622,6 +3627,98 @@ def _mesh_reduced(torch, dev, mesh, arch):
     return {"train_leaf_rel": leaf, "serve_rel": serve}
 
 
+def _mesh_checkpoint(torch, dev, mesh, arch=SERVE_ARCH):
+    """(e), and (d) on each rank: a checkpoint round trip of a sharded
+    state. One mesh train step at ``arch`` reduced (the trainer's
+    optimizer, 4 × 32), its DTensor state saved (every rank saves its
+    own shards, ``save_checkpoint`` gathering leaf by leaf), restored,
+    laid out by ``shard_tree`` with the run's specs, and step 2 from
+    there against step 2 of the run that never stopped: loss, grad_norm
+    and every leaf bit for bit. The saved objects equal the save of
+    ``gather_tree(state)`` byte for byte; save and restore seconds and
+    MB/s beside that unsharded tree's save and restore."""
+    from repro_torch import tree
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch.train import make_trainer, synthetic_batch
+    from repro_torch.models.model import init_params
+    from repro_torch.models.steps import make_train_step
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.storage import ObjectStore, compression
+    cfg = get_reduced(arch)
+    plan = sh.make_plan(mesh)
+    opt, _ = make_trainer(cfg, steps=5)
+    step = make_train_step(cfg, opt, compute_dtype=torch.float32, mesh=mesh)
+    p = init_params(cfg, torch.Generator(dev).manual_seed(0), device=dev)
+    p_specs = sh.param_shardings(plan, p)
+    dp = sh.shard_tree(plan, p, p_specs)
+    st = opt.init(dp)
+    specs = {"params": p_specs, "opt": sh.opt_state_shardings(plan, p, st)}
+    b1, b2 = (sh.shard_tree(plan, b, sh.batch_shardings(plan, b))
+              for b in (synthetic_batch(cfg, i, 4, 32, device=dev)
+                        for i in (0, 1)))
+    dp, st, _ = step(dp, st, b1)
+    state = {"params": dp, "opt": st}
+
+    def timed(fn):
+        t = time.perf_counter()
+        out = fn()
+        _sync(torch)
+        return out, time.perf_counter() - t
+
+    def objects(store):
+        return {k: store.get(k).data for k in store.list("")}
+    stores = {k: ObjectStore(tier="local") for k in ("mesh", "warm",
+                                                     "plain")}
+    # the first save also plans each leaf's gather (DTensor, on the host)
+    _, save_s = timed(lambda: save_checkpoint(stores["mesh"], "smoke", 1,
+                                              state))
+    _, warm_save_s = timed(lambda: save_checkpoint(stores["warm"], "smoke",
+                                                   1, state))
+    whole = sh.gather_tree(state)
+    _, plain_save_s = timed(lambda: save_checkpoint(stores["plain"], "smoke",
+                                                    1, whole))
+    saved = objects(stores["mesh"])
+    if not saved == objects(stores["warm"]) == objects(stores["plain"]):
+        raise AssertionError("mesh (e): the sharded state's objects are not "
+                             "the gathered state's")
+    (back, at), restore_s = timed(lambda: load_checkpoint(
+        stores["mesh"], "smoke", state, device=dev))
+    _, plain_restore_s = timed(lambda: load_checkpoint(
+        stores["plain"], "smoke", whole, device=dev))
+    resumed = sh.shard_tree(plan, back, specs)
+    wrong = [n for (n, t), spec in zip(tree.flatten_with_names(resumed),
+                                       tree.leaves(specs))
+             if tuple(t.placements) != sh.placements(plan, spec)]
+    if at != 1 or wrong:
+        raise AssertionError(f"mesh (e): restored step {at}, leaves out of "
+                             f"their placements: {wrong}")
+    p_r, st_r, m_r = step(resumed["params"], resumed["opt"], b2)
+    p_u, st_u, m_u = step(dp, st, b2)
+    got = sh.gather_tree({"params": p_r, "opt": st_r})
+    want = sh.gather_tree({"params": p_u, "opt": st_u})
+    differ = [n for (n, a), b in zip(tree.flatten_with_names(got),
+                                     tree.leaves(want))
+              if not torch.equal(a, b)]
+    for k in ("loss", "grad_norm"):
+        if float(m_r[k]) != float(m_u[k]):
+            differ.append(k)
+    if differ:
+        raise AssertionError(f"mesh (e): step 2 after the restore differs "
+                             f"from the uninterrupted step 2 in {differ}")
+    nbytes = sum(t.numel() * t.element_size() for t in tree.leaves(whole))
+    e = {"arch": arch, "reduced": True, "codec": compression.DEFAULT_CODEC,
+         "leaves": len(tree.leaves(whole)), "bytes": nbytes,
+         "stored_bytes": sum(map(len, saved.values())),
+         "save_s": save_s, "warm_save_s": warm_save_s,
+         "restore_s": restore_s, "plain_save_s": plain_save_s,
+         "plain_restore_s": plain_restore_s,
+         "loss2": float(m_r["loss"]), "grad_norm2": float(m_r["grad_norm"])}
+    for k in ("save", "warm_save", "restore", "plain_save", "plain_restore"):
+        e[f"{k}_mb_per_s"] = nbytes / e[f"{k}_s"] / 1e6
+    return e
+
+
 def _serve_tokens(torch, dev, cfg):
     """The serving shape's prompts and the tokens the decode steps are
     fed (random, as ``run_serving``'s prompts are)."""
@@ -3649,8 +3746,13 @@ def mesh_phase(torch, ext, dev, smi, *, arch=SERVE_ARCH, reduced=False):
     (c) the ten reduced configs' train step, prefill and two decode
     steps on the mesh against the port without one; (d) with four cards
     or more, granite-3-2b whole on the 2×2 (data, model) mesh of four
-    processes, one a card, against (a) and (b). ``arch`` / ``reduced``
-    replace (a)'s and (b)'s model in a rehearsal without a card."""
+    processes, one a card, against (a) and (b), and (e)'s round trip on
+    that mesh; (e) a checkpoint round trip of a sharded state at
+    granite-3-2b reduced (``_mesh_checkpoint``): save, restore,
+    ``shard_tree`` and step 2 = the uninterrupted step 2 bit for bit, the
+    objects = the gathered state's byte for byte, save and restore
+    seconds beside the gathered tree's. ``arch`` / ``reduced`` replace
+    (a)'s and (b)'s model in a rehearsal without a card."""
     import torch.distributed as dist
     from repro_torch.configs import ARCHS, get_config, get_reduced
     from repro_torch.launch.mesh import card_mesh, device_mesh
@@ -3762,6 +3864,23 @@ def mesh_phase(torch, ext, dev, smi, *, arch=SERVE_ARCH, reduced=False):
         c = {name: _mesh_reduced(torch, dev, mesh, name) for name in ARCHS}
         log(f"mesh (c): {len(c)} reduced configs in "
             f"{time.perf_counter() - t0:.1f} s")
+
+        # (e) a checkpoint round trip of the sharded state
+        e = _mesh_checkpoint(torch, dev, mesh)
+        log(f"mesh (e) {e['arch']} reduced on {smi}: one mesh step, the "
+            f"DTensor state saved ({e['leaves']} leaves, "
+            f"{e['bytes'] / 1e6:.3f} MB, {e['codec']}), restored, laid out "
+            f"and stepped = the uninterrupted step 2 bit for bit (loss "
+            f"{e['loss2']:.6f}, grad_norm {e['grad_norm2']:.6f}); objects = "
+            f"the gathered state's byte for byte; save {e['save_s']:.3f} s "
+            f"({e['save_mb_per_s']:.1f} MB/s; again {e['warm_save_s']:.3f} "
+            f"s, {e['warm_save_mb_per_s']:.1f} MB/s), restore "
+            f"{e['restore_s']:.3f}"
+            f" s ({e['restore_mb_per_s']:.1f} MB/s); the gathered tree: "
+            f"save {e['plain_save_s']:.3f} s "
+            f"({e['plain_save_mb_per_s']:.1f} MB/s), restore "
+            f"{e['plain_restore_s']:.3f} s "
+            f"({e['plain_restore_mb_per_s']:.1f} MB/s)")
     finally:
         dist.destroy_process_group()
 
@@ -3779,15 +3898,16 @@ def mesh_phase(torch, ext, dev, smi, *, arch=SERVE_ARCH, reduced=False):
     seconds = time.perf_counter() - t_phase
     log(f"mesh phase: {seconds:.1f} s")
     return {"card": smi, "serve": a, "train": b, "families": c,
-            "cards_2x2": d, "launches": launches, "tf32": False,
-            "seconds": seconds}
+            "checkpoint": e, "cards_2x2": d, "launches": launches,
+            "tf32": False, "seconds": seconds}
 
 
 def _mesh_card_rank(rank, world, port, arch, reduced, tokens, batch, out):
     """One rank of (d): card ``rank`` in a 2×2 (data, model) mesh over
     NCCL (gloo without a card); it serves and takes one train step as
-    (a) and (b) do, and rank 0 saves the logits, the step's metrics and
-    its updated parameters to ``out``."""
+    (a) and (b) do and runs (e)'s checkpoint round trip, and rank 0
+    saves the logits, the step's metrics, its updated parameters and the
+    round trip's record to ``out``."""
     import torch
     import torch.distributed as dist
     from repro_torch.configs import get_config, get_reduced
@@ -3816,9 +3936,10 @@ def _mesh_card_rank(rank, world, port, arch, reduced, tokens, batch, out):
                                 SERVE_SHAPE["new_tokens"], mesh)
         first, ms, _, _ = _mesh_train(torch, cfg, fresh(),
                                       _tree_to(batch, dev), mesh, steps=2)
+        ckpt = _mesh_checkpoint(torch, dev, mesh)
         if rank == 0:
             torch.save({"logits": [t.cpu() for t in logits], "train": first,
-                        "train_ms": ms}, out)
+                        "train_ms": ms, "checkpoint": ckpt}, out)
     finally:
         dist.destroy_process_group()
 
@@ -3852,13 +3973,18 @@ def _mesh_cards(torch, arch, reduced, tokens, want, batch):
     ill = _ill_elements(torch, cfg, fresh(), batch)
     want_t, _, _, _ = _mesh_train(torch, cfg, fresh(), batch, None)
     leaf = _hold_step(torch, got["train"], want_t, "mesh (d) train", ill)
+    ck = got["checkpoint"]
     log(f"mesh (d) {arch} on the 2x2 mesh of {MESH_CARDS} cards: logits "
         f"within {err:.3g} of the one-card run's max, train step leaves "
-        f"{leaf:.3g}, warm train step {got['train_ms']:.1f} ms; "
+        f"{leaf:.3g}, warm train step {got['train_ms']:.1f} ms; checkpoint "
+        f"round trip ({ck['arch']} reduced) bit for bit, save "
+        f"{ck['save_s']:.3f} s (again {ck['warm_save_s']:.3f} s), restore "
+        f"{ck['restore_s']:.3f} s (gathered "
+        f"tree {ck['plain_save_s']:.3f} / {ck['plain_restore_s']:.3f} s); "
         f"{seconds:.1f} s")
     return {"run": True, "cards": MESH_CARDS, "max_rel_err": err,
             "train_leaf_rel": leaf, "train_ms": got["train_ms"],
-            "seconds": seconds}
+            "checkpoint": ck, "seconds": seconds}
 
 
 if __name__ == "__main__":

@@ -1,7 +1,8 @@
 """``chip_smoke.mesh_phase`` alone on the card: the model stack over a
 one-card ``DeviceMesh`` (granite-3-2b whole served and one full-width
 train step against the port without a mesh, the ten reduced configs,
-and the 2×2 card mesh where the machine has four cards), without
+a checkpoint round trip of a sharded training state, and the 2×2 card
+mesh where the machine has four cards), without
 building or driving the kernels. Prints the card's name and power
 limit, the phase's log and its JSON object.
 

@@ -26,6 +26,16 @@ One difference: the reference caps every leaf's decompression at
 stacked ``w1`` and ``w3``, and their AdamW moments, are 2.68 GB each in
 float32). Here each leaf is capped at the size its manifest declares,
 ``prod(shape) × itemsize``, and one whose bytes differ from it raises.
+
+A sharded training state (DTensor leaves laid out over a ``DeviceMesh``
+by ``parallel/sharding.py``) saves as the reference saves a sharded JAX
+tree, whose ``np.asarray`` gathers each leaf: each DTensor leaf is
+gathered whole (``full_tensor``), written, and dropped before the next
+leaf is gathered, so a rank holds at most one whole leaf beyond its
+shards. The objects are the same bytes as the save of the gathered tree;
+there is no per-rank shard format. A restore returns whole tensors; a
+sharded run lays them out again with ``sharding.shard_tree`` and the
+specs it started with.
 """
 
 from __future__ import annotations
@@ -33,6 +43,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.storage import compression
 from repro_torch.storage import msgpack_codec as msgpack
@@ -51,8 +62,13 @@ _NAMES = {v: k for k, v in _DTYPES.items()}
 
 def _leaf_bytes(leaf: torch.Tensor) -> tuple[bytes, str, list[int]]:
     """A tensor's bytes (C order, native byte order), dtype name and
-    shape, as ``np.asarray(leaf).tobytes()`` gives the reference's."""
-    t = leaf.detach().to("cpu").contiguous()
+    shape, as ``np.asarray(leaf).tobytes()`` gives the reference's; a
+    DTensor's are its whole (global) tensor's, gathered here and freed on
+    return."""
+    t = leaf.detach()
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
+    t = t.to("cpu").contiguous()
     name = _NAMES[t.dtype]
     if t.dtype == torch.bfloat16:
         t = t.view(torch.int16)
@@ -61,7 +77,13 @@ def _leaf_bytes(leaf: torch.Tensor) -> tuple[bytes, str, list[int]]:
 
 def save_checkpoint(store: ObjectStore, run: str, step: int,
                     tree) -> str:
-    """Returns the manifest key."""
+    """Write ``tree`` (tensors, DTensors or both) as step ``step`` of
+    ``run``; returns the manifest key.
+
+    A DTensor leaf is gathered, a collective over its mesh: with any
+    DTensor in ``tree``, every rank of the mesh calls this with its own
+    shards of the same tree, in the same order, and every rank writes the
+    same objects (idempotent, as every write here is)."""
     prefix = f"ckpt/{run}/step{step:08d}"
     codec = compression.DEFAULT_CODEC
     manifest = {"step": step, "codec": codec, "leaves": []}
@@ -69,6 +91,7 @@ def save_checkpoint(store: ObjectStore, run: str, step: int,
         data, dtype, shape = _leaf_bytes(leaf)
         key = f"{prefix}/{name.replace('/', '.')}.{codec}"
         store.put(key, compression.compress(data, codec, level=1))
+        del data                     # before the next leaf's gather
         manifest["leaves"].append({
             "name": name, "key": key, "dtype": dtype, "shape": shape})
     mkey = f"{prefix}/MANIFEST"
@@ -108,9 +131,11 @@ def _restore_leaf(store: ObjectStore, leaf: dict, codec: str,
 def load_checkpoint(store: ObjectStore, run: str, template,
                     step: int | None = None, *, device=None):
     """Restore a tree matching ``template``'s structure (``template``'s
-    leaves give the names and shapes only: ``meta`` tensors will do).
-    The leaves are tensors on ``device`` (the CPU by default) with the
-    manifest's dtypes. Returns ``(tree, step)``."""
+    leaves give the names and shapes only: ``meta`` tensors will do, and
+    so will the DTensors of a sharded state, whose shapes are global).
+    The leaves are whole tensors on ``device`` (the CPU by default) with
+    the manifest's dtypes; a sharded run lays them out with
+    ``sharding.shard_tree``. Returns ``(tree, step)``."""
     if step is None:
         step = latest_step(store, run)
         if step is None:

@@ -33,6 +33,7 @@ WORLD = 4
 B, S = 4, 32
 LOSS_REL = 1e-5       # loss and grad_norm, relative
 LEAF_REL = 1e-4       # each tensor, of its largest reference value
+ILL = 100             # an AdamW denominator below ILL · eps: ill-conditioned
 ARCHS = ["granite-3-2b", "chatglm3-6b", "llama3-405b", "nemotron-4-15b",
          "mamba2-130m", "hymba-1.5b", "qwen3-moe-235b-a22b",
          "granite-moe-1b-a400m", "chameleon-34b", "whisper-large-v3"]
@@ -146,3 +147,18 @@ def tree_rel(got: dict, want: dict) -> dict:
 
 def rel(got, want) -> float:
     return abs(float(got) - float(want)) / max(abs(float(want)), 1e-30)
+
+
+def leaf_errors(got: dict, want: dict, ill: list):
+    """Per leaf: the largest error over its well-conditioned elements, of
+    its largest value; and the largest over its ill-conditioned ones
+    (``ill``: a boolean mask a leaf)."""
+    from repro_torch import tree
+    well, rest = [], []
+    for a, b, m in zip(tree.leaves(got), tree.leaves(want), ill):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        err = np.abs(a - b)
+        scale = max(float(np.abs(b).max()), 1e-30) if b.size else 1.0
+        well.append(float(err[~m].max()) / scale if (~m).any() else 0.0)
+        rest.append(float(err[m].max()) if m.any() else 0.0)
+    return well, rest

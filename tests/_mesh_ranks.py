@@ -6,11 +6,12 @@ module; it imports no JAX.
                                              MASTER_PORT)
 
 ``JOB`` is a pickle the test wrote: a list of cases, each an ``arch``, a
-``task`` (train, forward, serve, collectives), the reference's
-parameters as numpy arrays and the case's batch. Each rank lays them out
-by the rule tables (``parallel/sharding.py``), runs the port's step over
-the mesh, and rank 0 writes every result, gathered whole, as numpy
-arrays, to ``OUT``; a case that raises records its traceback there.
+``task`` (train, forward, serve, collectives, checkpoint, placements),
+the reference's parameters as numpy arrays and the case's batch. Each
+rank lays them out by the rule tables (``parallel/sharding.py``), runs
+the port's step over the mesh, and rank 0 writes every result, gathered
+whole, as numpy arrays, to ``OUT``; a case that raises records its
+traceback there.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import datetime
 import os
 import pickle
 import sys
+import time
 import traceback
 
 import numpy as np
@@ -29,6 +31,7 @@ from torch.distributed.tensor import DTensor
 from torch.distributed.tensor.debug import CommDebugMode
 
 from repro_torch import tree
+from repro_torch.checkpoint import load_checkpoint, save_checkpoint
 from repro_torch.configs import get_reduced
 from repro_torch.launch.mesh import device_mesh, make_debug_mesh
 from repro_torch.models import decode as decode_lib
@@ -37,6 +40,7 @@ from repro_torch.models import steps as steps_lib
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.optim import AdamW, cosine_schedule
 from repro_torch.parallel import sharding as sh
+from repro_torch.storage import ObjectStore
 
 F32 = torch.float32
 TRAIN_STEPS = 5         # the trainer's schedule length, as in the tests
@@ -210,8 +214,120 @@ def run_collectives(mesh, plan, case):
     return {"ops": every, "comm_counts": counts}
 
 
+def objects(store: ObjectStore) -> dict[str, bytes]:
+    return {k: store.get(k).data for k in store.list("")}
+
+
+def store_of(objs: dict[str, bytes]) -> ObjectStore:
+    store = ObjectStore(tier="local")
+    for k, v in objs.items():
+        store.put(k, v)
+    return store
+
+
+def saved(step: int, state) -> dict[str, bytes]:
+    """The objects ``save_checkpoint`` writes for ``state`` at ``step``,
+    into a store of their own (run ``run``)."""
+    store = ObjectStore(tier="local")
+    save_checkpoint(store, "run", step, state)
+    return objects(store)
+
+
+def differing(got: dict, want: dict) -> list[str]:
+    """Keys not byte-identical between two stores' objects, or in one
+    only."""
+    return sorted(k for k in set(got) | set(want) if got.get(k) != want.get(k))
+
+
+def wait_for(path: str, timeout: float = 600) -> None:
+    deadline = time.monotonic() + timeout
+    while not os.path.exists(path):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"{path} not written in {timeout:.0f} s")
+        time.sleep(0.2)
+
+
+def run_checkpoint(mesh, plan, case):
+    """A sharded state through the checkpoint store. Each rank saves
+    (every rank calls ``save_checkpoint`` with its own shards) and
+    compares its objects: the laid-out parameters' against the plain
+    parameters' save, and after one train step the DTensor state's
+    against the save of ``gather_tree(state)``. Then step 2 three ways
+    from the step-1 state: uninterrupted; restored from this rank's
+    objects (a DTensor template), laid out by ``shard_tree`` with the
+    run's specs; and from the reference's step-1 objects of its own
+    sharded run (``case["ref_ckpt"]``, written by
+    ``tests/_mesh_reference.py``)."""
+    cfg = config(case)
+    params = params_from_numpy(case["params"])
+    p_specs = sh.param_shardings(plan, params)
+    dp = sh.shard_tree(plan, params, p_specs)
+    laid_vs_plain = differing(saved(0, dp), saved(0, params))
+    opt = trainer_optimizer()
+    state = opt.init(dp)
+    specs = {"params": p_specs,
+             "opt": sh.opt_state_shardings(plan, params, state)}
+    b1, b2 = (sh.shard_tree(plan, b, sh.batch_shardings(plan, b))
+              for b in (tensors(case["batch"]), tensors(case["batch2"])))
+    step = steps_lib.make_train_step(cfg, opt, mesh=mesh, compute_dtype=F32)
+    dp, state, _ = step(dp, state, b1)
+    sharded = {"params": dp, "opt": state}
+    got = saved(1, sharded)
+    whole = numpy_tree(sh.gather_tree(sharded))
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, {
+        "laid_vs_plain": laid_vs_plain,
+        "sharded_vs_gathered": differing(got, saved(1, sh.gather_tree(
+            sharded)))})
+
+    def step2(start, name):
+        """Step 2 from ``start`` (in place); its metrics, state (whole)
+        and layout faults before and after."""
+        faults = layout_faults(plan, start, specs, f"{name}/restored")
+        p, st, m = step(start["params"], start["opt"], b2)
+        out = {"params": p, "opt": st}
+        return {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                "state": numpy_tree(sh.gather_tree(out)),
+                "faults": faults + layout_faults(plan, out, specs, name)}
+
+    def restored(objs):
+        back, at = load_checkpoint(store_of(objs), "run", sharded)
+        assert at == 1 and not any(isinstance(t, DTensor)
+                                   for t in tree.leaves(back))
+        return sh.shard_tree(plan, back, specs)
+    resumed = step2(restored(got), "resumed")
+    whole_run = step2(sharded, "uninterrupted")
+    wait_for(case["ref_ckpt"])
+    with open(case["ref_ckpt"], "rb") as f:
+        ref_objects = pickle.load(f)
+    return {"ranks": every, "objects": got, "step1": whole,
+            "resumed": resumed, "uninterrupted": whole_run,
+            "from_reference": step2(restored(ref_objects),
+                                    "from_reference")}
+
+
+def run_placements(mesh, plan, case):
+    """``case["tree"]`` laid out by the specs of ``case["spec_entries"]``
+    (``sharding.P(*entries)``): each rank's save of it against its plain
+    save, and its coordinate and local shards."""
+    # (``tensors`` would make a 0-d leaf 1-d: np.ascontiguousarray)
+    plain = {k: torch.from_numpy(v.copy()) for k, v in case["tree"].items()}
+    specs = {k: sh.P(*v) for k, v in case["spec_entries"].items()}
+    laid = sh.shard_tree(plan, plain, specs)
+    got = saved(0, laid)
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, {
+        "coordinate": mesh.get_coordinate(),
+        "differing": differing(got, saved(0, plain)),
+        "local": {k: v.to_local().numpy().copy() for k, v in laid.items()}})
+    return {"ranks": every, "objects": got,
+            "placements": {k: tuple(map(repr, v.placements))
+                           for k, v in laid.items()}}
+
+
 TASKS = {"train": run_train, "forward": run_forward, "serve": run_serve,
-         "collectives": run_collectives}
+         "collectives": run_collectives, "checkpoint": run_checkpoint,
+         "placements": run_placements}
 
 
 def main(job_path: str, out_path: str) -> int:

@@ -24,13 +24,13 @@ widest an update can differ), every other element to the bar; ROADMAP
 
 import dataclasses
 
-import numpy as np
 import pytest
 import torch
 
 import _mesh_ranks as ranks
-from _mesh_parity import (ARCHS, LEAF_REL, LOSS_REL, MeshRun, max_rel,
-                          reference_params, rel, result, train_batch)
+from _mesh_parity import (ARCHS, ILL, LEAF_REL, LOSS_REL, MeshRun,
+                          leaf_errors, max_rel, reference_params, rel,
+                          result, train_batch)
 from repro_torch import tree
 from repro_torch.launch import dryrun, specs as tspecs
 from repro_torch.models import config as tmc
@@ -47,7 +47,6 @@ ACCUM_ARCHS = ["granite-3-2b", "granite-moe-1b-a400m"]
 SEQPAR_ARCHS = ["granite-3-2b", "mamba2-130m"]
 NARROW = dict(d_model=128, d_ff=256, n_heads=8, n_kv_heads=4, vocab=256)
 F32 = torch.float32
-ILL = 100             # |clipped gradient| below ILL · eps: ill-conditioned
 LR1 = 3e-4            # the trainer's rate at step 1 (3e-3 · 1/10 warm-up)
 
 
@@ -125,21 +124,8 @@ def _bars(ref_case, ill) -> tuple[float, float]:
     mesh, plain = ref_case["mesh"], ref_case["plain"]
     gap_loss = max(rel(mesh["loss"], plain["loss"]),
                    rel(mesh["grad_norm"], plain["grad_norm"]))
-    gap_leaf = max(_leaf_errors(mesh["params"], plain["params"], ill)[0])
+    gap_leaf = max(leaf_errors(mesh["params"], plain["params"], ill)[0])
     return _bar(LOSS_REL, gap_loss), _bar(LEAF_REL, gap_leaf)
-
-
-def _leaf_errors(got: dict, want: dict, ill: list):
-    """Per leaf: the largest error over its well-conditioned elements, of
-    its largest value; and the largest over its ill-conditioned ones."""
-    well, rest = [], []
-    for a, b, m in zip(tree.leaves(got), tree.leaves(want), ill):
-        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
-        err = np.abs(a - b)
-        scale = max(float(np.abs(b).max()), 1e-30) if b.size else 1.0
-        well.append(float(err[~m].max()) / scale if (~m).any() else 0.0)
-        rest.append(float(err[m].max()) if m.any() else 0.0)
-    return well, rest
 
 
 def _check_step(got, want, plain, bars, ctx):
@@ -152,7 +138,7 @@ def _check_step(got, want, plain, bars, ctx):
         (ctx, got["loss"], want["loss"])
     assert rel(got["grad_norm"], want["grad_norm"]) <= loss_bar, \
         (ctx, got["grad_norm"], want["grad_norm"])
-    well, rest = _leaf_errors(got["params"], want["params"], ill)
+    well, rest = leaf_errors(got["params"], want["params"], ill)
     names = [n for n, _ in tree.flatten_with_names(want["params"])]
     bad = {n: e for n, e in zip(names, well) if e > leaf_bar}
     assert not bad, f"{ctx}: leaves past {leaf_bar:.3g}: {bad}"
