@@ -1,0 +1,9 @@
+"""Median seconds a client waited for a query's rows, over the queries
+answered in the window (the benchmark's clock around each call)."""
+
+import numpy as np
+
+
+def read(run):
+    waits = [r["end"] - r["start"] for r in run.done]
+    return float(np.percentile(waits, 50)) if waits else None
