@@ -35,7 +35,8 @@ from collections import deque
 from repro_torch.core.cost import CostModel
 from repro_torch.core.engine import (CoordinatorConfig, QueryCancelled,
                                QueryEngine, QueryResult)
-from repro_torch.core.events import ObserverMux, QueryObserver
+from repro_torch.core.events import (ObserverMux, QueryObserver, emit_span,
+                                     new_span_id)
 from repro_torch.core.platform import FaasPlatform, FaultPlan
 from repro_torch.core.registry import ResultRegistry
 from repro_torch.core.worker import make_worker_handler
@@ -286,7 +287,8 @@ class SkyriseSession:
         self.observers.add(observer)
 
     # -- internals -----------------------------------------------------------
-    def _engine(self, handle: QueryHandle) -> QueryEngine:
+    def _engine(self, handle: QueryHandle,
+                query_span: int | None = None) -> QueryEngine:
         return QueryEngine(
             self.store, self.catalog, platform=self.platform,
             config=self.config, cost_model=self.cost_model,
@@ -294,15 +296,22 @@ class SkyriseSession:
             observer=self.observers, query_id=handle.query_id,
             cancel_check=handle._raise_if_cancelled,
             priority=handle.priority, tenant=handle.tenant,
-            deadline_s=handle.deadline_s, fleet_cap=handle.fleet_cap)
+            deadline_s=handle.deadline_s, fleet_cap=handle.fleet_cap,
+            query_span=query_span)
 
-    def _plan_for(self, handle: QueryHandle):
+    def _plan_for(self, handle: QueryHandle,
+                  query_span: int | None = None):
         """Plan (but do not execute) a handle's query, caching the plan
-        on the handle so the scheduler reuses it."""
+        on the handle so the scheduler reuses it; a traced run's planning
+        is a ``query.plan`` span under ``query_span``."""
         with handle._lock:
             plan = handle._plan
         if plan is None:
+            t0 = time.perf_counter_ns() if query_span is not None else 0
             plan = self._engine(handle).plan_sql(handle.sql)
+            if query_span is not None:
+                emit_span(self.observers, handle.query_id, "query.plan",
+                          t0, query_span)
             with handle._lock:
                 handle._plan = plan
         return plan
@@ -371,9 +380,11 @@ class SkyriseSession:
     def _run(self, handle: QueryHandle) -> None:
         if not handle._begin(QueryState.PLANNING):
             return  # cancelled while queued: no worker was ever invoked
-        engine = self._engine(handle)
+        span = new_span_id() if self.observers.wants_spans else None
+        t0 = time.perf_counter_ns() if span is not None else 0
+        engine = self._engine(handle, span)
         try:
-            plan = self._plan_for(handle)
+            plan = self._plan_for(handle, span)
             if not handle._begin(QueryState.RUNNING):
                 return
             handle._finish(engine.execute_plan(plan))
@@ -381,6 +392,10 @@ class SkyriseSession:
             handle._finish_cancelled()
         except BaseException as e:  # noqa: BLE001 - surfaced via result()
             handle._fail(e)
+        finally:
+            if span is not None:
+                emit_span(self.observers, handle.query_id, "query", t0,
+                          span_id=span)
 
 
 def connect(store: ObjectStore | None = None,

@@ -46,7 +46,8 @@ import numpy as np
 
 from repro_torch.core.adaptive import Reoptimizer, apply_broadcast
 from repro_torch.core.cost import CostBreakdown, CostModel
-from repro_torch.core.events import QueryObserver
+from repro_torch.core.events import (QueryObserver, Span, emit_span,
+                                     new_span_id, wants_spans)
 from repro_torch.core.platform import (AdmissionController, FaasPlatform,
                                  InvocationResult)
 from repro_torch.core.registry import ResultRegistry
@@ -264,7 +265,8 @@ class QueryEngine:
                  priority: int = 0,
                  tenant: str | None = None,
                  deadline_s: float | None = None,
-                 fleet_cap: int | None = None):
+                 fleet_cap: int | None = None,
+                 query_span: int | None = None):
         self.store = store
         self.catalog = catalog
         self.platform = platform or FaasPlatform()
@@ -274,6 +276,11 @@ class QueryEngine:
         self.handler = handler or make_worker_handler(store)
         self.observer = observer or QueryObserver()
         self.query_id = query_id
+        # spans (core.events): on when an observer takes them; the
+        # query's span (the session's) is the parent of each pipeline's
+        self._spans = wants_spans(self.observer)
+        self._query_span = query_span
+        self._pipeline_spans: dict[int, int] = {}   # pid -> its span id
         self.priority = priority
         # service tier (repro_torch.service): tenant → fair-share admission
         # group; deadline_s → per-stage latency budgets (SLO-aware fleet
@@ -558,6 +565,22 @@ class QueryEngine:
             raise QueryCancelled("sibling pipeline failed; aborting")
 
     def _run_pipeline(self, p: Pipeline, stats: QueryStats) -> PipelineReport:
+        if not self._spans:
+            return self._run_pipeline_once(p, stats)
+        span, t0 = new_span_id(), time.perf_counter_ns()
+        self._pipeline_spans[p.pid] = span
+        try:
+            return self._run_pipeline_once(p, stats)
+        finally:
+            emit_span(self.observer, self.query_id, "pipeline", t0,
+                      self._query_span, span, pid=p.pid)
+
+    def _emit_wait(self, pid: int, what: str, t0_ns: int) -> None:
+        emit_span(self.observer, self.query_id, "engine.wait", t0_ns,
+                  self._pipeline_spans.get(pid), pid=pid, what=what)
+
+    def _run_pipeline_once(self, p: Pipeline,
+                           stats: QueryStats) -> PipelineReport:
         report = PipelineReport(p.pid, p.sem_hash, p.n_fragments,
                                 kernel=p.kernel or "",
                                 kernel_miss_reason=p.kernel_miss_reason
@@ -610,7 +633,7 @@ class QueryEngine:
         prefix = f"results/{name}"
         cfg = self.config
         pipelined = cfg.pipelined
-        sources = self._resolve_sources(p.op, pipelined=pipelined)
+        sources = self._resolve_sources(p, pipelined=pipelined)
         partials = [e for e in sources.values() if e.get("partial")]
         if partials:
             report.pipelined = True
@@ -1204,8 +1227,11 @@ class QueryEngine:
             report.semijoin = dict(sj, applied=False)
             return None
 
+        t0 = time.perf_counter_ns() if self._spans else 0
         words, build_rows, build_distinct = \
             self._await_build_filter(self._name(build_sem))
+        if self._spans:
+            self._emit_wait(p.pid, "build_filter", t0)
         if words is None:
             report.semijoin = dict(sj, applied=False,
                                    reason="filter unavailable")
@@ -1434,9 +1460,14 @@ class QueryEngine:
     def _invoke(self, p: Pipeline, spec: dict, report: PipelineReport,
                 stats: QueryStats, *, attempt: int,
                 count_payload: bool = True) -> InvocationResult:
+        if self._spans:
+            t0 = time.perf_counter_ns()
+            spec = dict(spec, trace=True)   # the worker records spans
         res = self.platform.invoke(self.handler, spec, pipeline=p.pid,
                                    fragment=spec["fragment"],
                                    attempt=attempt)
+        if self._spans:
+            self._relay_spans(p, spec, attempt, t0, res)
         tier_ops = {}
         with self._metrics_lock:
             report.attempts += 1
@@ -1477,6 +1508,25 @@ class QueryEngine:
             stats.cost.merge(cost)
         return res
 
+    def _relay_spans(self, p: Pipeline, spec: dict, attempt: int,
+                     t0_ns: int, res: InvocationResult) -> None:
+        """Emit the ``fragment`` span of one invocation and relay the
+        spans its worker recorded, the outermost as its children."""
+        attrs = {"pid": p.pid, "fragment": spec["fragment"],
+                 "attempt": attempt}
+        span = new_span_id()
+        emit_span(self.observer, self.query_id, "fragment", t0_ns,
+                  self._pipeline_spans.get(p.pid), span, **attrs)
+        sent = (res.payload or {}).get("spans")
+        if not sent:
+            return
+        ids = [new_span_id() for _ in sent["rows"]]
+        for sid, (name, t0, t1, parent, a) in zip(ids, sent["rows"]):
+            self.observer.on_span(Span(
+                sid, span if parent is None else ids[parent],
+                self.query_id, name, t0, t1, sent["thread"],
+                dict(a, **attrs)))
+
     def _accumulate_bloom(self, report: PipelineReport, words: bytes,
                           bloom_spec: dict) -> None:
         """OR one build fragment's Bloom words into the pipeline's
@@ -1512,7 +1562,7 @@ class QueryEngine:
             acc["write_s"] += float(s.get("write_s", 0.0))
 
     # -- plumbing -------------------------------------------------------------
-    def _resolve_sources(self, op: dict, *,
+    def _resolve_sources(self, p: Pipeline, *,
                          pipelined: bool = False) -> dict:
         sources: dict[str, dict] = {}
 
@@ -1521,7 +1571,7 @@ class QueryEngine:
                 sem = o["source"]
                 if sem not in sources:
                     if pipelined:
-                        sources[sem] = self._await_source(sem)
+                        sources[sem] = self._await_source(sem, p.pid)
                     else:
                         entry = self.registry.lookup(self._name(sem))
                         if entry is None:
@@ -1532,10 +1582,10 @@ class QueryEngine:
             for k in ("child", "probe", "build"):
                 if k in o:
                     collect(o[k])
-        collect(op)
+        collect(p.op)
         return sources
 
-    def _await_source(self, sem: str) -> dict:
+    def _await_source(self, sem: str, pid: int) -> dict:
         """Pipelined consumer admission: block until the upstream
         pipeline is barrier-complete (returns its registry entry) or
         past the partial-admission gate (returns a pilot-K
@@ -1544,7 +1594,20 @@ class QueryEngine:
         own cancel check (sibling abort) or the wait deadline fires."""
         cfg = self.config
         deadline = time.time() + cfg.pipelined_wait_timeout_s
+        t0 = time.perf_counter_ns() if self._spans else 0
         floor = self._await_source_gate(sem, deadline)
+        if self._spans:
+            self._emit_wait(pid, "gate", t0)
+            t0 = time.perf_counter_ns()
+        entry = self._await_source_ready(sem, deadline, floor)
+        if self._spans:
+            self._emit_wait(pid, "source", t0)
+        return entry
+
+    def _await_source_ready(self, sem: str, deadline: float,
+                            floor: float | None) -> dict:
+        """The wait of :meth:`_await_source` past this plan's gate."""
+        cfg = self.config
         name = self._name(sem)
         while True:
             try:

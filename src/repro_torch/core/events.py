@@ -4,9 +4,50 @@ The per-query engine emits lifecycle and adaptive-behavior events; a
 session multiplexes them to any number of registered observers. Override
 only the hooks you need — every method is a no-op by default, and
 observer exceptions never fail a query.
+
+Spans: an observer that overrides ``on_span`` turns tracing on for the
+session it is added to. Each span site then reads
+``time.perf_counter_ns()`` (the clock ``time.perf_counter`` reads too)
+at its two ends; with no such observer a site costs a boolean test and
+reads no clock.
 """
 
 from __future__ import annotations
+
+import dataclasses
+import itertools
+import threading
+import time
+
+_span_ids = itertools.count(1)
+
+
+def new_span_id() -> int:
+    """A span id unique in the process."""
+    return next(_span_ids)
+
+
+@dataclasses.dataclass(slots=True)
+class Span:
+    """One timed interval of a query's execution, on the host clock."""
+    id: int
+    parent: int | None
+    query_id: str
+    name: str
+    t0_ns: int
+    t1_ns: int
+    thread: str
+    attrs: dict
+
+
+def emit_span(observer: "QueryObserver", query_id: str, name: str,
+              t0_ns: int, parent: int | None = None,
+              span_id: int | None = None, **attrs) -> None:
+    """Send ``observer`` the span ``name`` of this thread that began at
+    ``t0_ns`` and ends now."""
+    observer.on_span(Span(span_id or new_span_id(), parent, query_id, name,
+                          t0_ns, time.perf_counter_ns(),
+                          threading.current_thread().name, attrs))
 
 
 class QueryObserver:
@@ -42,15 +83,29 @@ class QueryObserver:
         launch (fleet_resize / partition_prune / broadcast_downgrade /
         exchange_retier — see ``repro_torch.core.adaptive``)."""
 
+    def on_span(self, span: Span) -> None:
+        """A span ended. Overriding this turns tracing on; it may fire
+        from any thread of the session."""
+
+
+def wants_spans(observer: QueryObserver) -> bool:
+    """Whether ``observer`` takes spans: it overrides ``on_span`` (a mux:
+    one of its observers does)."""
+    if isinstance(observer, ObserverMux):
+        return observer.wants_spans
+    return type(observer).on_span is not QueryObserver.on_span
+
 
 class ObserverMux(QueryObserver):
     """Fans events out to many observers; isolates their failures."""
 
     def __init__(self, observers: list[QueryObserver] | None = None):
         self.observers: list[QueryObserver] = list(observers or [])
+        self.wants_spans = any(map(wants_spans, self.observers))
 
     def add(self, observer: QueryObserver) -> None:
         self.observers.append(observer)
+        self.wants_spans = self.wants_spans or wants_spans(observer)
 
     def _emit(self, method: str, *args) -> None:
         for obs in self.observers:
@@ -77,6 +132,9 @@ class ObserverMux(QueryObserver):
 
     def on_adaptation(self, query_id, pid, adaptation):
         self._emit("on_adaptation", query_id, pid, adaptation)
+
+    def on_span(self, span):
+        self._emit("on_span", span)
 
 
 class ConsoleObserver(QueryObserver):

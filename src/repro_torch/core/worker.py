@@ -56,6 +56,10 @@ def make_worker_handler(store: ObjectStore,
             # coordinator OR-merges these across the fleet and publishes
             # the merged filter through the partial-manifest protocol
             "bloom": result.bloom,
+            # a traced fragment's spans, on this worker's clock and
+            # thread (the engine relays them to the session's observers)
+            "spans": None if stats.spans is None else {
+                "thread": stats.spans.thread, "rows": stats.spans.rows},
             "stats": {
                 "rows_in": stats.rows_in,
                 "rows_out": stats.rows_out,

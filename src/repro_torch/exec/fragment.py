@@ -37,6 +37,29 @@ from repro_torch.storage.io_handlers import (FooterCache, InputHandler, IoStats,
 from repro_torch.storage.object_store import ObjectStore
 
 
+class SpanLog:
+    """The spans one traced fragment records on its worker thread, where
+    no observer is in reach; the engine relays them with the fragment's
+    span as the parent of the outermost ones. Spans nest as the calls
+    do: each ``begin`` is a child of the innermost span still open."""
+
+    def __init__(self):
+        self.thread = threading.current_thread().name
+        # [name, t0_ns, t1_ns, index of the parent row or None, attrs]
+        self.rows: list[list] = []
+        self._open: list[int] = []
+
+    def begin(self, name: str, **attrs) -> None:
+        parent = self._open[-1] if self._open else None
+        self._open.append(len(self.rows))
+        self.rows.append([name, time.perf_counter_ns(), 0, parent, attrs])
+
+    def end(self, **attrs) -> None:
+        row = self.rows[self._open.pop()]
+        row[2] = time.perf_counter_ns()
+        row[4].update(attrs)
+
+
 @dataclasses.dataclass
 class FragmentStats:
     rows_in: int = 0
@@ -64,6 +87,8 @@ class FragmentStats:
     semijoin_killed: int = 0
     # per-tier request/byte accounting for the cost model
     tier_ops: dict = dataclasses.field(default_factory=dict)
+    # the fragment's spans when its spec carries ``trace``, else None
+    spans: SpanLog | None = None
 
     def account(self, tier: str, st: IoStats, *, write: bool) -> None:
         t = self.tier_ops.setdefault(
@@ -106,12 +131,6 @@ class FragmentResult:
 # the card once). Every same-shaped fragment — of any query — reuses it.
 _FN_CACHE: dict[tuple[str, bool], tuple] = {}
 _FN_CACHE_LOCK = threading.Lock()
-_FN_CACHE_STATS = {"hits": 0, "misses": 0}
-
-
-def fn_cache_stats() -> dict:
-    with _FN_CACHE_LOCK:
-        return dict(_FN_CACHE_STATS, entries=len(_FN_CACHE))
 
 
 def _plan_key(op: dict) -> str:
@@ -188,10 +207,11 @@ def _build(op: dict, leaves: list[tuple[str, dict]]):
     raise TypeError(t)
 
 
-def _compiled(op: dict):
+def _compiled(op: dict, spans: SpanLog | None = None):
     """(program, leaves, kernel name, cache key) for an op tree: kernel
     dispatch first (``repro_torch.exec.lower``), generic torch chain
-    otherwise."""
+    otherwise. A miss that builds the program records ``fragment.build``
+    in ``spans``."""
     # read the dispatch switch once: key and lowering gate must agree, or
     # a concurrent toggle could park a generic program under a fused key
     dispatch = lower.enabled()
@@ -206,12 +226,11 @@ def _compiled(op: dict):
         if op.get("t") == "final":
             op = op["child"]
     key = (_plan_key(op), dispatch, tkey)
-    with _FN_CACHE_LOCK:
-        entry = _FN_CACHE.get(key)
-        if entry is not None:
-            _FN_CACHE_STATS["hits"] += 1
-            return entry
-        _FN_CACHE_STATS["misses"] += 1
+    entry = _FN_CACHE.get(key)      # one dict read: atomic under the GIL
+    if entry is not None:
+        return entry
+    if spans is not None:
+        spans.begin("fragment.build")
     lowered = lower.lower_fragment(op) if dispatch else None
     if lowered is not None:
         entry = (lowered.fn, lowered.leaves, lowered.kernel, key)
@@ -219,6 +238,8 @@ def _compiled(op: dict):
         leaves: list[tuple[str, dict]] = []
         fn = _build(op, leaves)
         entry = (fn, leaves, "", key)
+    if spans is not None:
+        spans.end()
     with _FN_CACHE_LOCK:
         return _FN_CACHE.setdefault(key, entry)
 
@@ -232,14 +253,18 @@ def _compiled(op: dict):
 _WARM_SHAPES: set = set()
 
 
-def _warm(fn, key, blocks, sync) -> None:
+def _warm(fn, key, blocks, sync, spans: SpanLog | None) -> None:
     sig = (key, tuple(sorted((lid, int(mask.shape[0]))
                              for lid, (_, mask) in blocks.items())))
     with _FN_CACHE_LOCK:
         if sig in _WARM_SHAPES:
             return
+    if spans is not None:
+        spans.begin("fragment.warm")
     fn(blocks)
     sync()
+    if spans is not None:
+        spans.end()
     with _FN_CACHE_LOCK:
         _WARM_SHAPES.add(sig)
 
@@ -398,7 +423,11 @@ def _load_exchange_pipelined(handler_for, store: ObjectStore, spec: dict,
             if time.time() >= deadline:
                 raise TimeoutError("exchange manifest never sealed: "
                                    "producer pipeline lost without abort")
+            if stats.spans is not None:
+                stats.spans.begin("fragment.wait")
             kv.watch(mkey, token, timeout_s=1.0)
+            if stats.spans is not None:
+                stats.spans.end()
     if pending is not None:
         collect(*pending)
 
@@ -415,6 +444,14 @@ def _load_exchange_pipelined(handler_for, store: ObjectStore, spec: dict,
     return out
 
 
+def _block_bytes(blocks: dict) -> int:
+    """Bytes of the device tensors a fragment uploaded: every column at
+    its bucketed capacity, each mask and the filter words."""
+    return sum(t.numel() * t.element_size()
+               for cols, mask in blocks.values()
+               for t in (*cols.values(), mask))
+
+
 # -- driver ------------------------------------------------------------------------
 
 def execute_fragment(store: ObjectStore, spec: dict,
@@ -425,12 +462,19 @@ def execute_fragment(store: ObjectStore, spec: dict,
     unless the caller asks for the CPU)."""
     device = resolve_device(device)
     cache = footer_cache if footer_cache is not None else FooterCache()
+    spans = SpanLog() if spec.get("trace") else None
     # Merge-wave fragments of a multi-level exchange are pure host-side
     # re-bucketing (plus partial-state combining): no device program.
     if spec["op"]["t"] == "merge_exchange":
-        return exchange.execute_merge(store, spec, footer_cache=cache,
-                                      cost_model=cost_model)
-    stats = FragmentStats()
+        if spans is not None:
+            spans.begin("fragment.merge")
+        res = exchange.execute_merge(store, spec, footer_cache=cache,
+                                     cost_model=cost_model)
+        if spans is not None:
+            spans.end(bytes=res.stats.bytes_read, rows=res.stats.rows_in)
+            res.stats.spans = spans
+        return res
+    stats = FragmentStats(spans=spans)
     # One input handler per storage tier, all sharing the (session-scoped)
     # footer cache — every leaf of this fragment reuses them instead of
     # constructing fresh handlers per source.
@@ -459,7 +503,7 @@ def execute_fragment(store: ObjectStore, spec: dict,
             and lower.bloom_probe_chain(op):
         op = {"t": "semijoin_probe", "key": sj["key"][0],
               "bits": int(sj["bits"]), "k": int(sj["k"]), "child": op}
-    fn, leaves, kernel, fn_key = _compiled(op)
+    fn, leaves, kernel, fn_key = _compiled(op, spans)
     stats.kernel = kernel
 
     # 1. Load leaf inputs (host side, ranged + pruned + re-triggered reads).
@@ -468,6 +512,9 @@ def execute_fragment(store: ObjectStore, spec: dict,
         if leaf_op["t"] == "bloom_words":
             tables.append((leaf_id, None, 0))
             continue
+        if spans is not None:
+            spans.begin("fragment.read")
+            read_before = stats.bytes_read
         if leaf_op["t"] == "scan_table":
             cols = _load_scan_table(handler_for(None), spec, leaf_op,
                                     stats)
@@ -475,6 +522,8 @@ def execute_fragment(store: ObjectStore, spec: dict,
             cols = _load_scan_exchange(handler_for, store, spec, leaf_op,
                                        stats)
         n = len(next(iter(cols.values()))) if cols else 0
+        if spans is not None:
+            spans.end(bytes=stats.bytes_read - read_before, rows=n)
         stats.rows_in += n
         tables.append((leaf_id, cols, n))
 
@@ -482,6 +531,8 @@ def execute_fragment(store: ObjectStore, spec: dict,
     # costs paid untimed, once per op×capacity bucket — simulated runtime
     # is steady-state compute, timed on this fragment's own stream).
     with _device_scope(device) as sync:
+        if spans is not None:
+            spans.begin("fragment.upload")
         blocks = {}
         for leaf_id, cols, n in tables:
             if cols is None:        # the filter words, uploaded once
@@ -492,19 +543,31 @@ def execute_fragment(store: ObjectStore, spec: dict,
                 continue
             blk = from_numpy(cols, bucket_capacity(n), device)
             blocks[leaf_id] = (blk.columns, blk.mask)
-        _warm(fn, fn_key, blocks, sync)
+        if spans is not None:
+            spans.end(bytes=_block_bytes(blocks),
+                      rows=sum(n for _, _, n in tables))
+        _warm(fn, fn_key, blocks, sync, spans)
         sync()
+        if spans is not None:
+            spans.begin("fragment.compute")
         t0 = time.perf_counter()
         out_cols, out_mask = fn(blocks)
         sync()
         stats.compute_s += time.perf_counter() - t0
+        if spans is not None:
+            spans.end()
+            spans.begin("fragment.download")
         result = to_numpy(Block(dict(out_cols), out_mask))
+        if spans is not None:
+            spans.end()
 
     # 2b. Semi-join kill before partitioning: the program emitted a
     # per-row Bloom verdict (``__bloom_pass``), or — for multi-column /
     # non-integer keys — the host probes the filter directly. Either way
     # the count is exact against the predicate-surviving stream, and the
     # killed rows never reach the exchange write.
+    if spans is not None:
+        spans.begin("fragment.host")
     if "__bloom_pass" in result:
         hit = result.pop("__bloom_pass") != 0
         stats.semijoin_killed = int(hit.size - hit.sum())
@@ -531,8 +594,12 @@ def execute_fragment(store: ObjectStore, spec: dict,
             result = {c: v[order] for c, v in result.items()}
         if fop.get("limit") is not None:
             result = {c: v[:fop["limit"]] for c, v in result.items()}
+    if spans is not None:
+        spans.end()
 
     # 4. Write deterministic output object(s).
+    if spans is not None:
+        spans.begin("fragment.write")
     schema = [pax.ColumnSpec(s["name"], s["kind"], s["dtype"])
               for s in spec["output"]["schema"]]
     names = [s.name for s in schema]
@@ -562,6 +629,8 @@ def execute_fragment(store: ObjectStore, spec: dict,
         out_keys.append(key)
         part_stats.append({"rows": n_out, "bytes": st.bytes, "kmv": [],
                            "write_s": st.sim_time_s})
+    if spans is not None:
+        spans.end(bytes=stats.bytes_written, rows=n_out)
 
     # 5. Build-side Bloom filter: fold this fragment's join-key column
     # into fleet-uniform filter words (size fixed by the coordinator so
@@ -572,8 +641,12 @@ def execute_fragment(store: ObjectStore, spec: dict,
     bl = spec.get("bloom")
     if bl is not None and part["kind"] == "hash" \
             and all(c in result for c in part["keys"]):
+        if spans is not None:
+            spans.begin("fragment.host")
         ku = bloomlib.keys_u32(result, list(part["keys"]), bl["mode"])
         words = bloomlib.bloom_build(ku, int(bl["bits"]), int(bl["k"]))
         bloom_payload = words.tobytes()
+        if spans is not None:
+            spans.end()
     return FragmentResult(out_keys, stats, part_stats,
                           bloom=bloom_payload)
