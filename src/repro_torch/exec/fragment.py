@@ -534,20 +534,28 @@ def execute_fragment(store: ObjectStore, spec: dict,
         if spans is not None:
             spans.begin("fragment.upload")
         blocks = {}
+        # bytes copied to the card from pinned staging, and any other way
+        staged = pageable = 0
         for leaf_id, cols, n in tables:
             if cols is None:        # the filter words, uploaded once
                 words = np.frombuffer(sj["words"], dtype=np.uint32)
                 blocks[leaf_id] = (
                     {"words": bloomlib.words_tensor(words, device)},
                     torch.ones((1,), dtype=torch.bool, device=device))
+                if device.type == "cuda":
+                    pageable += words.nbytes
                 continue
             blk = from_numpy(cols, bucket_capacity(n), device)
             blocks[leaf_id] = (blk.columns, blk.mask)
+            staged += blk.staged
+        # the copies are asynchronous: wait for them here, so that
+        # fragment.upload holds their device time and compute none of it
+        sync()
         if spans is not None:
             spans.end(bytes=_block_bytes(blocks),
-                      rows=sum(n for _, _, n in tables))
+                      rows=sum(n for _, _, n in tables),
+                      staged=staged, pageable=pageable)
         _warm(fn, fn_key, blocks, sync, spans)
-        sync()
         if spans is not None:
             spans.begin("fragment.compute")
         t0 = time.perf_counter()

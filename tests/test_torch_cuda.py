@@ -15,12 +15,16 @@ without JAX; there, skip the JAX-importing conftest:
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import threading
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.api import connect
 from repro_torch.exec import lower
+from repro_torch.exec.batch import bucket_capacity, from_numpy
+from repro_torch.exec.fragment import _device_scope
 from repro_torch.analysis import roofline
 from repro_torch.core import CoordinatorConfig
 from repro_torch.kernels import bloom, ext, ops, specialise
@@ -1292,3 +1296,92 @@ def test_exchange_hash_on_the_card_equals_the_host(card):
         want = tops.np_hash_dest({"x": x, "y": y}, ["x", "y"], n_dest)
         assert np.array_equal(dest[mask], want[mask]), n_dest
         assert (dest[~mask] == -1).all()
+
+
+# -- the fragment's upload: pinned staging ------------------------------------
+
+UPLOAD_CAP = 4096
+
+
+def _upload_columns(n, seed):
+    rng = np.random.default_rng(seed)
+    return {"f64": rng.standard_normal(n),
+            "i64": rng.integers(-2**62, 2**62, n),
+            "i32": rng.integers(-2**31, 2**31, n, dtype=np.int32),
+            "u32": rng.integers(0, 2**32, n, dtype=np.uint32),
+            "b": rng.random(n) < 0.5,
+            "two": rng.standard_normal((n, 3)).astype(np.float32),
+            "strided": rng.integers(-9, 9, (2 * n, 2))[::2, 1]}
+
+
+def _bits(t):
+    return t.cpu().numpy().tobytes()
+
+
+@pytest.mark.parametrize("n", [0, 1, UPLOAD_CAP - 1, UPLOAD_CAP])
+def test_staged_upload_equals_the_cpu_path(card, n):
+    """``from_numpy`` on the card stages every column in pinned memory:
+    values, pad zeros, mask, dtypes and shapes equal the CPU path's bit
+    for bit, and every byte it copied came from the staging."""
+    cols = _upload_columns(n, n)
+    assert n < 2 or not cols["strided"].flags.contiguous
+    want = from_numpy(cols, UPLOAD_CAP, "cpu")
+    got = from_numpy(cols, UPLOAD_CAP, card)
+    torch.cuda.synchronize()
+    for c in cols:
+        g, w = got.columns[c], want.columns[c]
+        assert g.device.type == "cuda" and g.is_contiguous()
+        assert (g.dtype, g.shape) == (w.dtype, w.shape), c
+        assert _bits(g) == _bits(w), c
+    assert _bits(got.mask) == _bits(want.mask)
+    assert int(got.mask.sum()) == n
+    assert want.staged == 0
+    assert got.staged == sum(t.numel() * t.element_size()
+                             for t in (*got.columns.values(), got.mask))
+
+
+def test_staged_uploads_survive_concurrent_reuse_of_pinned_blocks(card):
+    """Eight fragments, each on its own stream, upload twice in a row
+    behind a kernel that holds their stream, overwriting their numpy
+    sources as soon as each call returns: the pinned blocks freed after
+    the first upload may go to no other upload before their copies have
+    landed, so every block equals what was sent."""
+    n, threads, rounds = 300_000, 8, 2
+    barrier = threading.Barrier(threads)
+    results, errors = {}, []
+
+    def sent(t, r):
+        base = np.arange(n, dtype=np.int64) * 16 + t * 4 + r
+        return {"a": base, "b": (base * 3).astype(np.float64),
+                "c": (base & 0xFFFF).astype(np.int32)}
+
+    def fragment(t):
+        try:
+            with _device_scope(card) as sync:
+                src = {c: v.copy() for c, v in sent(t, 0).items()}
+                barrier.wait(timeout=60)
+                blocks = []
+                for r in range(rounds):
+                    torch.cuda._sleep(20_000_000)   # hold the stream
+                    blocks.append(from_numpy(src, bucket_capacity(n), card))
+                    for c, v in sent(t, r + 1).items():
+                        src[c][:] = v      # the next round's data
+                sync()
+                results[t] = [{c: blk.columns[c][:n].cpu().numpy()
+                               for c in blk.columns} for blk in blocks]
+        except Exception as e:             # reported by the main thread
+            errors.append(e)
+
+    workers = [threading.Thread(target=fragment, args=(t,))
+               for t in range(threads)]
+    for w in workers:
+        w.start()
+    for w in workers:
+        w.join(timeout=300)
+        assert not w.is_alive()
+    assert not errors, errors
+    for t in range(threads):
+        for r in range(rounds):
+            for c, v in sent(t, r).items():
+                np.testing.assert_array_equal(results[t][r][c], v,
+                                              err_msg=f"{t} {r} {c}")

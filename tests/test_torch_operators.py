@@ -17,6 +17,7 @@ import torch
 import repro.exec.operators as ref_ops
 from repro.exec.batch import from_numpy as ref_from_numpy
 from repro.exec.expr import expr_from_dict as ref_from_dict
+from repro_torch.exec import batch as port_batch
 from repro_torch.exec import operators as port_ops
 from repro_torch.exec.batch import from_numpy as port_from_numpy
 from repro_torch.exec.batch import bucket_capacity, resolve_device, to_numpy
@@ -171,6 +172,36 @@ def test_block_round_trip_and_bytes_columns():
         np.testing.assert_array_equal(back[c], v)
     with pytest.raises(TypeError, match="bytes"):
         port_from_numpy({"s": np.array([b"ab", b"cd"], "S2")})
+
+
+@pytest.mark.parametrize("n", [0, 1, 2047, 2048])
+def test_staged_layout_equals_the_plain_block(monkeypatch, n):
+    """The card's upload lays each column at its capacity and the mask
+    at aligned offsets of one host buffer and fills them in place; laid
+    out in unpinned memory here (no card to pin for), the block equals
+    the plain path's bit for bit, 2-D and strided sources included."""
+    empty = torch.empty
+    monkeypatch.setattr(torch, "empty",
+                        lambda *a, pin_memory=False, **kw: empty(*a, **kw))
+    rng = np.random.default_rng(n)
+    cols = {"d": rng.standard_normal(n),
+            "i": rng.integers(-2**62, 2**62, n),
+            "k": rng.integers(-9, 9, n).astype(np.int32),
+            "u": rng.integers(0, 2**32, n, dtype=np.uint32),
+            "b": rng.random(n) < 0.5,
+            "two": rng.standard_normal((n, 3)).astype(np.float32),
+            "strided": rng.integers(-9, 9, 3 * n)[::3]}
+    want = port_from_numpy(cols, 2048, "cpu")
+    got = port_batch._staged(cols, n, 2048, torch.device("cpu"))
+    for c in cols:
+        assert got.columns[c].dtype == want.columns[c].dtype, c
+        assert got.columns[c].shape == want.columns[c].shape, c
+        assert _np(got.columns[c]).tobytes() == \
+            _np(want.columns[c]).tobytes(), c
+    assert _np(got.mask).tobytes() == _np(want.mask).tobytes()
+    assert got.staged == sum(t.numel() * t.element_size()
+                             for t in (*got.columns.values(), got.mask))
+    assert want.staged == 0
 
 
 def test_resolve_device_refuses_a_silent_cpu():

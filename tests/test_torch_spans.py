@@ -10,7 +10,9 @@ fragment spec carries the trace mark and no worker records a span; and
 tracing changes no answer and no count.
 """
 
+import math
 import sys
+import threading
 import time
 from collections import Counter
 
@@ -22,6 +24,8 @@ from repro_torch.core import CoordinatorConfig
 from repro_torch.core import worker as worker_mod
 from repro_torch.core.events import (ObserverMux, QueryObserver,
                                      wants_spans)
+from repro_torch.exec import fragment as fragment_mod
+from repro_torch.exec.batch import bucket_capacity
 from repro_torch.exec.fragment import SpanLog
 from repro_torch.data import generate_tpch
 from repro_torch.kernels import ext
@@ -60,7 +64,7 @@ class Fragments:
         monkeypatch.setattr(worker_mod, "execute_fragment", execute)
 
 
-def _run(observer, *, pipelined=True):
+def _run(observer, *, pipelined=True, device="cpu"):
     """Q3 and Q6 on fresh SF 0.01 tables: each query's rows, pipeline
     counts and launch counts."""
     store = ObjectStore(tier="local", seed=0)
@@ -68,7 +72,7 @@ def _run(observer, *, pipelined=True):
     cfg = CoordinatorConfig(planner=PLANNER, use_result_cache=False,
                             pipelined=pipelined)
     out = {}
-    with connect(store, catalog, device="cpu", config=cfg,
+    with connect(store, catalog, device=device, config=cfg,
                  observers=(observer,)) as session:
         for q in QUERY_NAMES:
             before = ext.launches()
@@ -237,3 +241,66 @@ def test_span_log_nests_as_the_calls_do():
                      ("fragment.upload", None, {"rows": 1, "bytes": 8})]
     r0, r1 = log.rows[0], log.rows[1]
     assert r0[1] <= r1[1] <= r1[2] <= r0[2]
+
+
+class Uploads:
+    """Each worker call's ``fragment.upload`` attrs, beside the bytes its
+    blocks hold by their numpy inputs: every column at its bucketed
+    capacity and one mask byte a row of it."""
+
+    def __init__(self, monkeypatch):
+        self.calls = []
+        local = threading.local()
+        inner_exec = worker_mod.execute_fragment
+        inner_from = fragment_mod.from_numpy
+
+        def from_numpy(cols, capacity, device):
+            cap = bucket_capacity(
+                len(next(iter(cols.values()))) if cols else 0)
+            local.bytes += cap + sum(
+                cap * a.dtype.itemsize * math.prod(a.shape[1:])
+                for a in cols.values())
+            return inner_from(cols, capacity, device)
+
+        def execute(store, spec, **kw):
+            local.bytes = 0
+            res = inner_exec(store, spec, **kw)
+            rows = [r for r in res.stats.spans.rows
+                    if r[0] == "fragment.upload"]
+            self.calls.append((spec, local.bytes, [r[4] for r in rows]))
+            return res
+        monkeypatch.setattr(fragment_mod, "from_numpy", from_numpy)
+        monkeypatch.setattr(worker_mod, "execute_fragment", execute)
+
+
+def test_upload_counts_its_bytes_as_before_and_stages_nothing_on_the_cpu(
+        monkeypatch):
+    """``bytes`` is every column at its bucketed capacity plus each
+    mask; off the card no byte is copied, staged or not."""
+    ups = Uploads(monkeypatch)
+    _run(SpanRecorder())
+    uploads = [(spec, want, attrs) for spec, want, rows in ups.calls
+               for attrs in rows]
+    assert uploads
+    for spec, want, attrs in uploads:
+        assert spec.get("semijoin") is None      # no filter words here
+        assert attrs["bytes"] == want >= 1024
+        assert attrs["staged"] == 0 and attrs["pageable"] == 0
+
+
+@pytest.mark.cuda
+def test_upload_stages_the_blocks_on_the_card(monkeypatch):
+    """On the card every byte of a TPC-H query's blocks is copied from
+    pinned staging: ``staged`` and ``pageable`` add up to the bytes
+    copied, and ``staged`` is at least 99 % of them."""
+    import torch
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    ups = Uploads(monkeypatch)
+    _run(SpanRecorder(), device=None)
+    attrs = [a for _, _, rows in ups.calls for a in rows]
+    assert attrs
+    for a in attrs:
+        assert a["staged"] + a["pageable"] == a["bytes"]
+    staged = sum(a["staged"] for a in attrs)
+    assert staged >= 0.99 * sum(a["bytes"] for a in attrs)
