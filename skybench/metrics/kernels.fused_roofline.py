@@ -1,20 +1,19 @@
 """The scan and join kernels' share of their roofline in the window.
 
 Bound: ``skybench.work``'s least time of each fused scan or join
-pipeline that completed in the window, counted from its query. Device
-time: the profiler's time of the kernels those pipelines launch (the
-NVRTC-compiled scan kernels ``spec_*``, the join kernel and their
-finishing pass, all ``scan_agg::``). Where the profiler recorded fewer
-main launches than the program counted (``kernels.ext.launches``), the
-time is scaled up by the ratio, so a lost record cannot raise the
-share. Q3's top-k runs on an intermediate the yardstick does not count,
-and stays out.
+pipeline that completed in the window, counted from its query and, for
+a pipeline fed by hash exchanges, from the rows its producers wrote
+into them (``work.fused_pipelines``). Device time: the profiler's time
+of the kernels those pipelines launch (the NVRTC-compiled scan kernels
+``spec_*``, the join kernel and their finishing pass, all
+``scan_agg::``). Where the profiler recorded fewer main launches than
+the program counted (``kernels.ext.launches``), the time is scaled up by
+the ratio, so a lost record cannot raise the share. Q3's top-k runs on
+an intermediate the yardstick does not count, and stays out.
 """
 
 from skybench import work
 
-KERNELS = ("filter_agg", "groupby_onehot", "segmented_minmax",
-           "join_probe_agg")
 COUNTERS = ("filter_agg", "groupby", "groupby_minmax", "join_probe_agg")
 
 
@@ -37,10 +36,6 @@ def read(run):
         return None
     dev *= max(1.0, counted / recorded)
     bound = 0.0
-    for qid, t, rep in run.pipelines_in_window():
-        if rep.kernel in KERNELS and not rep.cache_hit:
-            q = run.kind_of_qid(qid)
-            if q is not None:
-                bound += work.bound_s(q, rep.kernel_fragments,
-                                      rep.n_fragments, run.table_rows)
+    for _, _, _, b in work.fused_pipelines(run):
+        bound += b
     return 100.0 * bound / dev if bound > 0 else None

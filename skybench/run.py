@@ -18,7 +18,9 @@ reference (``skybench.reference``). On the card every run profiles it
 from the window's open until the last query sent in the window has
 answered (the card time a query costs is an end-to-end metric);
 ``--trace 1`` reports the per-layer metrics instead of the end-to-end
-ones.
+ones, and records the program's spans (``skybench.spans``) from the
+window's open for the readers that take them; ``--trace 0`` adds no span
+recorder, so the program's span sites read no clock.
 
 ``--device cpu --sf 0.01`` rehearses a run on the CPU with the port's
 plain kernels: its device fields say so and no device metric is filled.
@@ -50,7 +52,8 @@ if str(ROOT) not in sys.path:
 
 import numpy as np  # noqa: E402
 
-from skybench import host, probe, qgen, tpchgen, workload  # noqa: E402
+from skybench import (host, probe, qgen, spans, tpchgen,  # noqa: E402
+                      work, workload)
 from skybench.reference import compare, tpch as reference  # noqa: E402
 
 # top-level module names the process may not hold once the window closes
@@ -151,7 +154,8 @@ def _warm(client, texts: list[str], n: int) -> None:
 
 
 def _gap_label(run: Run, host_t: float) -> str:
-    """What the clients' queries were doing at host time ``host_t``."""
+    """What the clients' queries were doing at host time ``host_t``, and
+    in a run with spans, the leaf spans of any query open then."""
     rec = run.recorder
     busy = []
     for r in run.records:
@@ -167,7 +171,35 @@ def _gap_label(run: Run, host_t: float) -> str:
                     state = s
             busy.append(f"{r['q']} {state.lower()}"
                         + (f" ({pipes} pipelines done)" if pipes else ""))
-    return ", ".join(sorted(busy)) or "no query in flight"
+    label = ", ".join(sorted(busy)) or "no query in flight"
+    if run.spans:
+        names = sorted({n for _, n, _ in spans.open_at(run, host_t)})
+        label += "; in " + (", ".join(names) if names else "no span")
+    return label
+
+
+def _roofline_count(run: Run) -> dict:
+    """How ``kernels.fused_roofline`` counted the fused pipelines of the
+    window (``skybench.work``): the bound summed as the reader sums it,
+    beside the scan-fed formula summed over every pipeline, and each
+    exchange-fed pipeline's producers (at most ten)."""
+    bound = scan_fed = 0.0
+    n = 0
+    fed = []
+    for q, rep, feeders, b in work.fused_pipelines(run):
+        n += 1
+        bound += b
+        scan_fed += work.bound_s(q, rep.kernel_fragments, rep.n_fragments,
+                                 run.table_rows)
+        if feeders:
+            fed.append({"q": q, "pid": rep.pid,
+                        "fused": rep.kernel_fragments,
+                        "fragments": rep.n_fragments, "bound_s": b,
+                        "exchange_rows": [work.exchange_rows(
+                            p, rep.kernel_fragments, rep.n_fragments)
+                            for p in feeders]})
+    return {"pipelines": n, "exchange_fed": len(fed), "bound_s": bound,
+            "scan_fed_formula_s": scan_fed, "fed": fed[:10]}
 
 
 def _breakdown(run: Run) -> dict:
@@ -175,8 +207,8 @@ def _breakdown(run: Run) -> dict:
     ops = sorted(tr.kernel_seconds().items(), key=lambda kv: -kv[1][0])
     gaps = tr.gaps()[:10]
     return {"device_ops": [[n[:160], s] for n, (s, _) in ops[:10]],
-            "idle_gaps": [[_gap_label(run, tr.host_time((a + b) / 2)),
-                           b - a] for a, b in gaps]}
+            "idle_gaps": [[_gap_label(run, tr.host_time((a + b) / 2))
+                           [:200], b - a] for a, b in gaps]}
 
 
 def _power_limit() -> str | None:
@@ -236,7 +268,8 @@ def main(argv=None) -> int:
         return fail(f"the program is not in this checkout ({src})")
     sys.path.insert(0, str(src))
     import repro_torch
-    if Path(repro_torch.__file__).resolve().parent != src / "repro_torch":
+    if Path(repro_torch.__file__).resolve().parent != \
+            (src / "repro_torch").resolve():
         return fail(f"repro_torch imported from {repro_torch.__file__}")
     from repro_torch.core.events import QueryObserver
     from repro_torch.storage.object_store import ObjectStore
@@ -325,6 +358,10 @@ def main(argv=None) -> int:
         from skybench.trace import DeviceTrace
         trace = DeviceTrace(torch, device)
         trace.start()
+    span_rec = None
+    if args.trace:
+        span_rec = spans.make_span_recorder()
+        client.session.add_observer(span_rec)
     before = probe.counters()
     pauses = GcPauses()
     gc.callbacks.append(pauses)
@@ -401,6 +438,7 @@ def main(argv=None) -> int:
               recorder=recorder, acks=acks, trace=trace,
               done_requests={r["request_id"] for r in done},
               kind_of_text=kind_of_text, table_rows=rows,
+              spans=None if span_rec is None else span_rec.spans,
               launches_in_window={
                   k: v - before["launches"].get(k, 0)
                   for k, v in after["launches"].items()})
@@ -455,6 +493,12 @@ def main(argv=None) -> int:
             f"{trace.busy_s():.6f} s of {trace.window_s:.6f} s; main scan "
             f"and join kernels recorded "
             f"{sum(c for n, (_, c) in ks.items() if n.startswith('spec_') or 'join_probe_kernel' in n)}")
+    if args.trace:
+        log("roofline count " + json.dumps(_roofline_count(run)))
+        if run.spans is not None:
+            log(f"spans recorded: {len(run.spans)}; a query answered in "
+                f"the window sent "
+                + json.dumps(spans.by_name_per_query(run)))
     for w in wrong[:10]:
         log(f"wrong: {w}")
 

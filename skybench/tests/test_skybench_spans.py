@@ -151,3 +151,57 @@ def test_intervals():
     assert spans.covered(1, 4, merged) == 2
     assert spans.covered(5, 9, merged) == 0
     assert spans.covered(-1, 0.25, merged) == 0.25
+
+
+# -- the harness's own traced runs record the spans ------------------------------
+
+# a hook run before the harness: says on stderr each time it makes a span
+# recorder
+_COUNT_RECORDERS = """
+import skybench.spans as _spans
+_make = _spans.make_span_recorder
+def _counted():
+    print("span recorder made", file=sys.stderr, flush=True)
+    return _make()
+_spans.make_span_recorder = _counted
+"""
+
+
+def _bench():
+    import json
+    return json.loads((ROOT / "BENCHMARK.json").read_text())
+
+
+def _cells():
+    return [w["name"] for w in _bench()["workloads"]]
+
+
+@pytest.mark.parametrize("cell", _cells())
+def test_a_traced_rehearsal_reads_every_span_metric(cell):
+    from _harness import result, run_cell
+    rc, out, err = run_cell(cell, trace=1, fault=_COUNT_RECORDERS)
+    assert rc == 0, err[-3000:]
+    r = result(out)
+    assert r["correct"] is True
+    assert err.count("span recorder made") == 1
+    by_source = {}
+    for m in _bench()["per_layer"]:
+        if cell in m.get("workloads", [cell]):
+            by_source.setdefault(m["source"], set()).add(m["name"])
+    assert set(NEW[:-1]) <= by_source["program_span"]
+    assert by_source["program_span"] <= set(r["metrics"])
+    for name in NEW[:-1]:
+        assert r["metrics"][name]["value"] > 0, name
+    # read off the card's trace: left out on the CPU
+    assert NEW[-1] in by_source["device_trace"]
+    assert not by_source["device_trace"] & set(r["metrics"])
+    assert "spans recorded: " in out
+
+
+def test_an_untraced_run_adds_no_span_recorder():
+    from _harness import result, run_cell
+    rc, out, err = run_cell(_cells()[0], trace=0, fault=_COUNT_RECORDERS)
+    assert rc == 0, err[-3000:]
+    assert result(out)["correct"] is True
+    assert "span recorder made" not in err
+    assert "spans recorded: " not in out
