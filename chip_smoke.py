@@ -132,8 +132,8 @@ MINMAX_SQL = ("select l_returnflag, min(l_quantity) as mq, "
 # grouped by a dictionary-coded column (its join and merge stages are
 # then direct-strategy aggregates, the join stage on the join kernel) and,
 # as there, by l_orderkey (its join stage is a sort-strategy aggregate
-# over a join and its merge stage ends in a project: neither is a kernel
-# arm, in either package)
+# over a join, on the port's own sort_agg arm over joins, which the
+# reference's dispatch misses; its merge stage ends in a project, no arm)
 SELECTIVE_JOIN = (
     "select o_orderpriority, sum(l_extendedprice) as rev "
     "from lineitem, orders "
@@ -486,9 +486,10 @@ def query_phase(torch, ext, *, sf=1, n_parts=None, device=None,
                ("q12-repart", QUERIES["q12"], repart,
                 {"join_probe_agg": None}),
                ("semijoin-orderkey", SELECTIVE_JOIN_BY_ORDERKEY, repart,
-                {"bloom_filter": None}),
+                {"bloom_filter": None, "sort_agg": None}),
                ("sortagg", SORTAGG_SQL, session, {"sort_agg": None}),
-               ("q3", QUERIES["q3"], session, {"topk": None})]
+               ("q3", QUERIES["q3"], session,
+                {"sort_agg": None, "topk": None})]
     shapes, specs, frags, captured, current = {}, {}, {}, {}, [None]
     fetched, truth = {}, {}
     restore = _capture(ops, captured, current)
@@ -600,6 +601,7 @@ def query_phase(torch, ext, *, sf=1, n_parts=None, device=None,
             "bloom_rows": shapes[("semijoin", "bloom_filter")],
             "bloom_spec": specs["semijoin"], "catalog": catalog,
             "sort_input": captured[("sortagg", "sort_agg")],
+            "sort_q3_input": captured[("q3", "sort_agg")],
             "topk_input": captured[("q3", "topk")], "sf": sf,
             "q6_rows": fetched["q6"], "truth": truth, "n_parts": n_parts,
             "config": config,
@@ -613,7 +615,7 @@ def query_phase(torch, ext, *, sf=1, n_parts=None, device=None,
 SERVICE_QUERIES = {"q6": ("filter_agg",), "q1": ("groupby_onehot",),
                    "minmax": ("segmented_minmax",), "q12": ("join_probe_agg",),
                    "q14": ("join_probe_agg",), "q19": ("join_probe_agg",),
-                   "q3": ("topk",), "sortagg": ("sort_agg",)}
+                   "q3": ("sort_agg", "topk"), "sortagg": ("sort_agg",)}
 SERVICE_TENANTS = (("gold", dict(weight=3.0, deadline_s=30.0)),
                    ("bronze", dict(weight=1.0, budget_cents=100.0)))
 # the dead owner's lease in the recovery drive: long enough that no
@@ -1580,14 +1582,24 @@ def _sort_ops(n, lanes):
 
 
 def _library_sort_ms(torch, flush, keys, mask):
-    """The same permutation as the sort-aggregate's network from one
-    library call: a stable torch.sort of the packed key inv << 62 | key
-    (a single key below 2^62, as l_orderkey)."""
-    if len(keys) != 1 or bool((keys[0] >= 1 << 62).any()) \
-            or bool((keys[0] < 0).any()):
-        return None
-    packed = ((~mask).to(torch.int64) << 62) | keys[0]
-    return _time_ms(torch, lambda: torch.sort(packed, stable=True), flush)
+    """The same permutation as the sort-aggregate's network from library
+    calls: one stable torch.sort of the packed key inv << 62 | key where
+    a single key lies in [0, 2^62) (as l_orderkey), else a stable sort a
+    lane, last lane first, each lane gathered by the order so far (LSD),
+    over ``[inv] + keys`` (Q3's join stage: three keys)."""
+    if len(keys) == 1 and not bool((keys[0] >= 1 << 62).any()) \
+            and not bool((keys[0] < 0).any()):
+        packed = ((~mask).to(torch.int64) << 62) | keys[0]
+        return _time_ms(torch, lambda: torch.sort(packed, stable=True),
+                        flush)
+    lanes = [(~mask).to(torch.int64)] + list(keys)
+
+    def lsd():
+        idx = torch.arange(mask.numel(), device=mask.device)
+        for x in reversed(lanes):
+            idx = idx[torch.sort(x[idx], stable=True).indices]
+        return idx
+    return _time_ms(torch, lsd, flush)
 
 
 def _library_topk(torch, flush, cols, mask, sort_keys, limit, plain):
@@ -1654,7 +1666,7 @@ def _edge_key(np, rng, kind, n):
 def sort_kernel_phase(torch, dev, state, launches, flush):
     """``fused_sort_agg`` and ``fused_topk`` against their plain versions:
     at the main path's captured inputs (the GROUP BY l_orderkey fragment,
-    Q3's final), at 2^20 rows, and on the edge cases."""
+    Q3's join stage, Q3's final), at 2^20 rows, and on the edge cases."""
     import numpy as np
     from repro_torch.analysis import roofline
     from repro_torch.exec.batch import bucket_capacity, from_numpy
@@ -1673,7 +1685,7 @@ def sort_kernel_phase(torch, dev, state, launches, flush):
         raise AssertionError(f"sort_agg main fragment capacity "
                              f"{mask.numel()}, want 2^23")
 
-    def sa_call(keys, values, fns, mask):
+    def sa_call(keys, values, fns, mask, tiling=tiling):
         return ops.fused_sort_agg(keys, values, fns, mask, tiling=tiling)
 
     def sa_bound(keys, values, fns, mask):
@@ -1695,21 +1707,30 @@ def sort_kernel_phase(torch, dev, state, launches, flush):
     val20 = [None if f == "count" else qty for f in fns]
     mask20 = blk.mask
     sa_results, library = {}, {}
-    for label, (k, v, f, m) in (("2^20", (key20, val20, fns, mask20)),
-                                ("main", (keys, values, fns, mask))):
+    # Q3's join stage: its three keys (l_orderkey, o_orderdate,
+    # o_shippriority) and its revenue, under the mask the joins leave
+    (q3keys, q3values, q3fns, q3mask), q3kw = state["sort_q3_input"]
+    if len(q3keys) != 3:
+        raise AssertionError(f"sort_agg q3 join: {len(q3keys)} keys, want 3")
+    for label, (k, v, f, m), til in (
+            ("2^20", (key20, val20, fns, mask20), tiling),
+            ("main", (keys, values, fns, mask), tiling),
+            ("q3 join", (q3keys, q3values, q3fns, q3mask),
+             q3kw["tiling"])):
         passes = _radix_passes(torch, m, k)
         log(f"kernel sort_agg {label}: {passes} live radix passes")
         sa_results[label] = _hold(
             torch, flush, f"sort_agg {label}",
-            lambda: sa_call(k, v, f, m),
+            lambda: sa_call(k, v, f, m, til),
             lambda: sa.fused_sort_agg_plain(k, v, f, m),
             _compare_sort_agg, sa_bound(k, v, f, m),
             dict(rows=int(m.sum()), capacity=m.numel(),
-                 groups=int(sa_call(k, v, f, m)[2].sum()),
+                 groups=int(sa_call(k, v, f, m, til)[2].sum()),
                  radix_passes=passes))
         library[label] = _library_sort_ms(torch, flush, k, m)
+        sa_results[label]["library_ms"] = library[label]
         log(f"kernel sort_agg {label}: library torch.sort(stable=True) of "
-            f"the packed key {library[label]} ms")
+            f"the packed key, or a lane at a time, {library[label]} ms")
     # edge cases at 2^16 rows, every aggregate function
     n = 1 << 16
     base = np.resize(lineitem["l_orderkey"], n).astype(np.int64)

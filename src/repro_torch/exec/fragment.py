@@ -31,7 +31,6 @@ from repro_torch.kernels import bloom as bloomlib
 from repro_torch.kernels import hash_partition as hp
 from repro_torch.exec.batch import (Block, bucket_capacity, from_numpy,
                                     resolve_device, to_numpy)
-from repro_torch.exec.expr import expr_from_dict
 from repro_torch.storage import pax
 from repro_torch.storage.io_handlers import (FooterCache, InputHandler, IoStats,
                                        OutputHandler)
@@ -138,76 +137,6 @@ def _plan_key(op: dict) -> str:
     return json.dumps(op, sort_keys=True, separators=(",", ":"))
 
 
-def _build(op: dict, leaves: list[tuple[str, dict]]):
-    """Recursively build a pure function over named leaf blocks."""
-    t = op["t"]
-    if t in ("scan_table", "scan_exchange"):
-        leaf_id = f"in{len(leaves)}"
-        leaves.append((leaf_id, op))
-        return lambda blocks: blocks[leaf_id]
-    if t == "filter":
-        child = _build(op["child"], leaves)
-        f = ops.make_filter(expr_from_dict(op["pred"]))
-
-        def run_filter(blocks):
-            cols, mask = child(blocks)
-            return f(cols, mask)
-        return run_filter
-    if t == "project":
-        child = _build(op["child"], leaves)
-        f = ops.make_project([(n, expr_from_dict(e))
-                              for n, e in op["exprs"]])
-
-        def run_project(blocks):
-            cols, mask = child(blocks)
-            return f(cols, mask)
-        return run_project
-    if t in ("partial_agg", "merge_agg"):
-        child = _build(op["child"], leaves)
-        aggs = [(n, fn, expr_from_dict(a) if a else None)
-                for n, fn, a in op["aggs"]]
-        if op["strategy"] == "direct":
-            f, _ = ops.make_direct_agg(op["group_cols"], op["sizes"], aggs)
-        else:
-            f = ops.make_sort_agg(op["group_cols"], aggs)
-
-        def run_agg(blocks):
-            cols, mask = child(blocks)
-            return f(cols, mask)
-        return run_agg
-    if t == "semijoin_probe":
-        # generic arm of the fused Bloom probe (exec.lower's
-        # ``bloom_filter`` arm): same hash family, same reserved
-        # ``__bloom_pass`` column, bit for bit. The filter words arrive
-        # through the runtime ``__bloom`` pseudo-leaf, so the cached
-        # program never holds a query's filter contents.
-        child = _build(op["child"], leaves)
-        key, bits, k = op["key"], int(op["bits"]), int(op["k"])
-        leaves.append(("__bloom", {"t": "bloom_words"}))
-
-        def run_semijoin(blocks):
-            cols, mask = child(blocks)
-            words = blocks["__bloom"][0]["words"]
-            hit = bloomlib.bloom_probe_plain(cols[key], words, bits,
-                                             k) & mask
-            out = dict(cols)
-            out["__bloom_pass"] = hit.to(torch.int32)
-            return out, mask
-        return run_semijoin
-    if t == "join":
-        probe = _build(op["probe"], leaves)
-        build = _build(op["build"], leaves)
-        f = ops.make_pk_join_probe(op["probe_key"], op["build_key"],
-                                   op["payload"])
-
-        def run_join(blocks):
-            pcols, pmask = probe(blocks)
-            bcols, bmask = build(blocks)
-            return f(pcols, pmask, bcols, bmask)
-        return run_join
-    raise TypeError(t)
-
-
 def _compiled(op: dict, spans: SpanLog | None = None):
     """(program, leaves, kernel name, cache key) for an op tree: kernel
     dispatch first (``repro_torch.exec.lower``), generic torch chain
@@ -237,7 +166,7 @@ def _compiled(op: dict, spans: SpanLog | None = None):
         entry = (lowered.fn, lowered.leaves, lowered.kernel, key)
     else:
         leaves: list[tuple[str, dict]] = []
-        fn = _build(op, leaves)
+        fn = ops.build_chain(op, leaves)
         entry = (fn, leaves, "", key)
     if spans is not None:
         spans.end()

@@ -32,11 +32,14 @@ one-pass vectorized worker loop):
         scan's predicate on the generic torch ops, as the reference does.
 
   ``scan → [filter…] → partial_agg/merge_agg`` (strategy ``sort``: group
-  keys that are not dictionary coded)
+  keys that are not dictionary coded), and the port alone: the same
+  aggregate over a chain of ``join``, ``filter`` and ``project`` over
+  scans (TPC-H Q3's join stage)
       → :func:`repro_torch.kernels.ops.fused_sort_agg`: the radix
         sort on ``[invalid] + keys``, a segmented scan and the
-        compaction, after the predicate and the aggregate arguments on
-        the generic torch ops, as the reference evaluates them.
+        compaction, after the chain (``operators.build_chain``), the
+        predicate and the aggregate arguments on the generic torch ops,
+        as the reference evaluates them.
 
   ``final`` with ORDER BY + LIMIT over ``[filter…]→scan`` (TPC-H Q3's)
       → :func:`repro_torch.kernels.ops.fused_topk`: the radix sort
@@ -121,6 +124,7 @@ def disabled():
 class Match:
     kernel: str                  # kernel name (see module docstring)
     leaf: dict                   # probe-side scan op feeding the chain
+    #                              (sort_agg: the chain under the filters)
     preds: list[dict]            # post-join/agg-level predicate dicts
     group_cols: list[str]
     sizes: list[int]
@@ -249,6 +253,20 @@ def bloom_probe_chain(op: dict) -> bool:
     return _peel_filters(op)[1].get("t") in _LEAF_OPS
 
 
+_CHAIN_OPS = ("join", "filter", "project")
+
+
+def _chain_ok(op: dict) -> bool:
+    """Whether the ``sort_agg`` arm runs the ops under a sort-strategy
+    aggregate: a chain of joins, filters and projects over scans, which
+    it runs on the generic torch ops."""
+    t = op.get("t")
+    if t in _LEAF_OPS:
+        return True
+    return t in _CHAIN_OPS and all(
+        _chain_ok(op[k]) for k in ("child", "probe", "build") if k in op)
+
+
 def _match_agg(op: dict):
     strategy = op.get("strategy")
     group_cols = list(op["group_cols"])
@@ -266,7 +284,7 @@ def _match_agg(op: dict):
         _expr_cols(p, needed)
 
     if strategy == "sort":
-        if child.get("t") not in _LEAF_OPS:
+        if not _chain_ok(child):
             return None, (f"sort-strategy aggregate over non-scan child "
                           f"(op={child.get('t')})")
         if child["t"] == "scan_table" and \
@@ -554,7 +572,8 @@ def _lower_bloom_filter(m: Match) -> Lowered:
     surviving rows stay valid) and emits the verdict as the reserved
     ``__bloom_pass`` column, so the fragment executor counts killed rows
     exactly and compacts before partitioning; the generic arm
-    (``fragment._build``'s ``semijoin_probe``) emits the same column."""
+    (``operators.build_chain``'s ``semijoin_probe``) emits the same
+    column."""
     pred = _compile_pred(m.preds)
     key, bits, k, tiling = m.probe_key, m.bloom_bits, m.bloom_k, m.tiling
     leaf_id = "in0"
@@ -578,13 +597,14 @@ def _is_pow2(n: int) -> bool:
 
 
 def _lower_sort_agg(m: Match) -> Lowered:
-    """The predicate, the int64 group keys and the f64 aggregate
-    arguments on the generic torch ops (as the reference evaluates them
-    outside its kernel), then one kernel call: sort, segmented scan,
-    compaction. A capacity that is not a power of two, or one past the
-    kernel's rows (the tiling's ``resident_rows``, ``SORT_MAX_ROWS``),
-    takes the generic sort-aggregate instead, as the reference's arm
-    does; the wrappers raise there."""
+    """The chain under the aggregate (its scan, or its joins, filters and
+    projects: ``operators.build_chain``), the predicate, the int64 group
+    keys and the f64 aggregate arguments on the generic torch ops (as the
+    reference evaluates them outside its kernel), then one kernel call:
+    sort, segmented scan, compaction. A capacity that is not a power of
+    two, or one past the kernel's rows (the tiling's ``resident_rows``,
+    ``SORT_MAX_ROWS``), takes the generic sort-aggregate instead, as the
+    reference's arm does; the wrappers raise there."""
     pred = _compile_pred(m.preds)
     group_cols, tiling = list(m.group_cols), m.tiling
     names = [name for name, _, _ in m.aggs]
@@ -595,10 +615,11 @@ def _lower_sort_agg(m: Match) -> Lowered:
         group_cols, [(n, fn, expr_from_dict(a) if a else None)
                      for n, fn, a in m.aggs])
     cap = tiling.resident_rows
-    leaf_id = "in0"
+    leaves: list[tuple[str, dict]] = []
+    child = xops.build_chain(m.leaf, leaves)
 
     def fn(blocks):
-        cols, mask = blocks[leaf_id]
+        cols, mask = child(blocks)
         m2 = mask if pred is None else mask & pred(cols)
         n = int(mask.shape[0])
         if not _is_pow2(n) or n > cap:
@@ -618,7 +639,7 @@ def _lower_sort_agg(m: Match) -> Lowered:
         out = dict(zip(group_cols, out_keys))
         out.update(zip(names, out_vals))
         return out, out_mask
-    return Lowered(fn, [(leaf_id, m.leaf)], m.kernel, m.tiling)
+    return Lowered(fn, leaves, m.kernel, m.tiling)
 
 
 def _lower_topk(m: Match) -> Lowered:

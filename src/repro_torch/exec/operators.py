@@ -18,7 +18,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.exec.expr import compile_expr
+from repro_torch.exec.expr import compile_expr, expr_from_dict
+from repro_torch.kernels import bloom as bloomlib
 from repro_torch.kernels.common import ACC_DTYPE, KEY_DTYPE, NEUTRAL
 from repro_torch.kernels.sortnet import lexsort_order
 from repro_torch.sql import ast
@@ -311,6 +312,82 @@ def make_pk_join_probe(probe_key: str, build_key: str,
                 out[c] = build_cols[c][sel]
         return out, hit
     return op
+
+
+# -- the whole chain ------------------------------------------------------------
+
+def build_chain(op: dict, leaves: list[tuple[str, dict]]):
+    """A fragment's whole operator chain as one pure function over named
+    leaf blocks (the generic program of ``exec.fragment``; the kernel
+    arms of ``exec.lower`` run parts of it too). Each leaf appends
+    ``(leaf id, op)`` to ``leaves``, in the order the tree is walked."""
+    t = op["t"]
+    if t in ("scan_table", "scan_exchange"):
+        leaf_id = f"in{len(leaves)}"
+        leaves.append((leaf_id, op))
+        return lambda blocks: blocks[leaf_id]
+    if t == "filter":
+        child = build_chain(op["child"], leaves)
+        f = make_filter(expr_from_dict(op["pred"]))
+
+        def run_filter(blocks):
+            cols, mask = child(blocks)
+            return f(cols, mask)
+        return run_filter
+    if t == "project":
+        child = build_chain(op["child"], leaves)
+        f = make_project([(n, expr_from_dict(e))
+                          for n, e in op["exprs"]])
+
+        def run_project(blocks):
+            cols, mask = child(blocks)
+            return f(cols, mask)
+        return run_project
+    if t in ("partial_agg", "merge_agg"):
+        child = build_chain(op["child"], leaves)
+        aggs = [(n, fn, expr_from_dict(a) if a else None)
+                for n, fn, a in op["aggs"]]
+        if op["strategy"] == "direct":
+            f, _ = make_direct_agg(op["group_cols"], op["sizes"], aggs)
+        else:
+            f = make_sort_agg(op["group_cols"], aggs)
+
+        def run_agg(blocks):
+            cols, mask = child(blocks)
+            return f(cols, mask)
+        return run_agg
+    if t == "semijoin_probe":
+        # generic arm of the fused Bloom probe (exec.lower's
+        # ``bloom_filter`` arm): same hash family, same reserved
+        # ``__bloom_pass`` column, bit for bit. The filter words arrive
+        # through the runtime ``__bloom`` pseudo-leaf, so the cached
+        # program never holds a query's filter contents.
+        child = build_chain(op["child"], leaves)
+        key, bits, k = op["key"], int(op["bits"]), int(op["k"])
+        leaves.append(("__bloom", {"t": "bloom_words"}))
+
+        def run_semijoin(blocks):
+            cols, mask = child(blocks)
+            words = blocks["__bloom"][0]["words"]
+            hit = bloomlib.bloom_probe_plain(cols[key], words, bits,
+                                             k) & mask
+            out = dict(cols)
+            out["__bloom_pass"] = hit.to(torch.int32)
+            return out, mask
+        return run_semijoin
+    if t == "join":
+        probe = build_chain(op["probe"], leaves)
+        build = build_chain(op["build"], leaves)
+        f = make_pk_join_probe(op["probe_key"], op["build_key"],
+                               op["payload"])
+
+        def run_join(blocks):
+            pcols, pmask = probe(blocks)
+            bcols, bmask = build(blocks)
+            return f(pcols, pmask, bcols, bmask)
+        return run_join
+    raise TypeError(t)
+
 
 
 # -- exchange partitioning -------------------------------------------------------

@@ -743,23 +743,27 @@ SORTAGG_SQL = ("select l_orderkey, sum(l_quantity) as s, count(*) as c "
 
 @pytest.mark.parametrize("query", ["sortagg", "q3"])
 def test_sort_query_on_the_card_equals_the_oracle(session, query):
-    """The GROUP BY l_orderkey's stage 0 runs sort_agg; Q3's final runs
-    topk under the benchmark suites' planner (at SF 0.01 the default
-    planner folds the final into the merge stage)."""
+    """The GROUP BY l_orderkey's stage 0 runs sort_agg; Q3's join stage
+    runs sort_agg over its joins and its final runs topk under the
+    benchmark suites' planner (at SF 0.01 the default planner folds the
+    final into the merge stage)."""
     s, catalog, _ = session
     from repro_torch.core.engine import QueryEngine
-    kernel = {"sortagg": "sort_agg", "q3": "topk"}[query]
+    kernels = {"sortagg": ["sort_agg"], "q3": ["sort_agg", "topk"]}[query]
     sql = SORTAGG_SQL if query == "sortagg" else QUERIES["q3"]
     cfg = CoordinatorConfig(planner=PlannerConfig(
         bytes_per_worker=500_000, broadcast_threshold_bytes=250_000,
         exchange_partitions=4))
     eng = QueryEngine(s.store, catalog, platform=s.platform, config=cfg,
                       handler=s.handler)
-    before = ext.launches().get(kernel, 0)
+    before = ext.launches()
     res = eng.execute_plan(eng.plan_sql(sql))
-    (p,) = [p for p in res.stats.pipelines if p.kernel]
-    assert p.kernel == kernel and p.kernel_fragments == p.n_fragments
-    assert ext.launches().get(kernel, 0) >= before + p.n_fragments
+    ran = [p for p in res.stats.pipelines if p.kernel]
+    assert [p.kernel for p in ran] == kernels
+    for p in ran:
+        assert p.kernel_fragments == p.n_fragments
+        assert ext.launches().get(p.kernel, 0) >= \
+            before.get(p.kernel, 0) + p.n_fragments
     assert not any("not yet ported" in r.kernel_miss_reason
                    for r in res.stats.pipelines)
     lqp, _ = Binder(catalog).bind(parse(sql))
@@ -1466,13 +1470,62 @@ def _bits_np(a):
     return np.ascontiguousarray(a).tobytes()
 
 
+REPART_Q3 = dict(broadcast_threshold_bytes=0, exchange_partitions=9,
+                 exchange_strategy="combining")
+
+
+def _stage_objects(store, res, qid, sem_hashes) -> list[bytes]:
+    """The combined exchange objects one run's pipelines of
+    ``sem_hashes`` wrote."""
+    return sorted(store.get(k).data for p in res.stats.pipelines
+                  if p.exchange_strategy and p.sem_hash in sem_hashes
+                  for k in store.list("")
+                  if f"/{p.sem_hash}@{qid}-" in k and k.endswith("all.spax"))
+
+
+def test_repartitioned_q3_join_stage_runs_sort_agg_on_the_card(session):
+    """TPC-H Q3 with its joins repartitioned (9 partitions), dispatch on:
+    the join stage's aggregate runs the sort_agg kernel over the joins on
+    every fragment, one launch a fragment once its program is warm (the
+    first run pays the untimed first calls), and the rows are the
+    oracle's. Two runs write the partial aggregate's exchange byte for
+    byte: the kernel's radix sort and segmented scan add each group's
+    rows in one order, where the generic path's ``index_add_`` atomics do
+    not."""
+    s, catalog, _ = session
+    cfg = CoordinatorConfig(use_result_cache=False,
+                            planner=PlannerConfig(**REPART_Q3))
+    lqp, _ = Binder(catalog).bind(parse(QUERIES["q3"]))
+    want = oracle.run(optimize(lqp), _tables(s, catalog))
+    objects = []
+    with connect(s.store, catalog, config=cfg) as q:
+        for _ in range(3):
+            before = ext.launches().get("sort_agg", 0)
+            h = q.submit(QUERIES["q3"])
+            res = h.result(timeout=300)
+            launched = ext.launches().get("sort_agg", 0) - before
+            got = res.fetch(s.store)
+            for c in want:
+                np.testing.assert_allclose(
+                    np.sort(np.asarray(got[c], float)),
+                    np.sort(np.asarray(want[c], float)), **TOL)
+            (join,) = [p for p in res.stats.pipelines
+                       if p.kernel == "sort_agg"]
+            assert join.kernel_fragments == join.n_fragments >= 1
+            objects.append(_stage_objects(s.store, res, h.query_id,
+                                          {join.sem_hash}))
+    assert launched == join.n_fragments
+    assert objects[1] and objects[1] == objects[2] == objects[0]
+
+
 def test_repartitioned_q3_partitions_on_the_card(session):
     """TPC-H Q3 with its joins repartitioned (9 partitions), on the card:
     the oracle's rows, every producer partitioned by the kernel (but one
     whose Bloom filter the host probes itself), and the exchange objects
     the host's partition writes, byte for byte. (The partial aggregate's
-    exchange is left out: its sums over exchange rows differ in their
-    last bits from run to run on either path.)"""
+    exchange is left out: with dispatch off its sums over exchange rows
+    differ in their last bits from run to run; with dispatch on, see
+    ``test_repartitioned_q3_join_stage_runs_sort_agg_on_the_card``.)"""
     from repro_torch.core.engine import QueryEngine
     from repro_torch.core.events import QueryObserver
     s, catalog, _ = session

@@ -142,6 +142,45 @@ def test_sort_agg_arm_falls_back_off_a_power_of_two(no_wrappers,
                                     for r in np.flatnonzero(valid)})
 
 
+def test_sort_agg_arm_over_a_join_falls_back_off_a_power_of_two(
+        no_wrappers):
+    """The port's own arm over a join, where the reference's dispatch
+    misses (its generic chain is the yardstick): at 700 probe rows the
+    arm runs the join and then the generic sort-aggregate."""
+    from repro.exec.fragment import _build as ref_build
+    rng = np.random.default_rng(3)
+    nb = 64
+    probe = {"g": rng.integers(0, nb + 8, N).astype(np.int64),
+             "x": rng.normal(size=N), "y": rng.random(N)}
+    build = {"bk": rng.permutation(nb).astype(np.int64),
+             "d": rng.integers(0, 9, nb).astype(np.int64)}
+    mask = rng.random(N) < 0.9
+    join = {"t": "join", "probe": {"t": "scan_exchange", "source": 0},
+            "build": {"t": "scan_exchange", "source": 1},
+            "probe_key": "g", "build_key": "bk", "payload": ["d"]}
+    op = {"t": "partial_agg", "strategy": "sort", "group_cols": ["g", "d"],
+          "sizes": None, "aggs": SA_AGGS[:3],
+          "child": {"t": "filter", "pred": SA_PRED, "child": join}}
+    with ref_lower.interpret_gate_disabled():
+        assert ref_lower.lower_fragment(op) is None
+    port = port_lower.lower_fragment(op)
+    assert port.kernel == "sort_agg"
+    rp, pp = ref_from_numpy(probe, N), port_from_numpy(probe, N, "cpu")
+    rb, pb = ref_from_numpy(build, nb), port_from_numpy(build, nb, "cpu")
+    leaves = []
+    want, wmask = ref_build(op, leaves)(
+        {"in0": (rp.columns, rp.mask & jnp.asarray(mask)),
+         "in1": (rb.columns, rb.mask)})
+    assert port.leaves == leaves
+    got, gmask = port.fn({"in0": (pp.columns,
+                                  pp.mask & torch.from_numpy(mask)),
+                          "in1": (pb.columns, pb.mask)})
+    assert gmask.shape == (N,) and int(gmask.sum()) > 1
+    _assert_same_rows(_rows(got, gmask), _rows(
+        {k: np.asarray(v) for k, v in want.items()}, np.asarray(wmask)),
+        "sort_agg over a join at 700 rows")
+
+
 def test_topk_arm_passes_the_batch_through_off_a_power_of_two(no_wrappers):
     rng = np.random.default_rng(2)
     cols = {"rev": rng.normal(size=N), "d": rng.integers(0, 4, N),
@@ -184,11 +223,11 @@ def sessions():
     port.close()
 
 
-def _check_query(sessions, port, ref, sql, kernel, ctx):
+def _check_query(sessions, port, ref, sql, kernels, ctx):
     _, _, catalog, tables = sessions
     res = port.sql(sql)
     got = _rows(res.fetch(port.store))
-    assert [p.kernel for p in res.stats.pipelines if p.kernel] == [kernel]
+    assert [p.kernel for p in res.stats.pipelines if p.kernel] == kernels
     lqp, _ = Binder(catalog).bind(parse(sql))
     _assert_same_rows(got, _rows(oracle.run(optimize(lqp), tables)),
                       f"{ctx} vs oracle")
@@ -201,7 +240,7 @@ def test_sortagg_query_falls_back_past_the_sort_cap(sessions, no_wrappers,
                                                     monkeypatch):
     ref, port, _, _ = sessions
     monkeypatch.setattr(roofline, "SORT_MAX_ROWS", 512)
-    res = _check_query(sessions, port, ref, SORTAGG_SQL, "sort_agg",
+    res = _check_query(sessions, port, ref, SORTAGG_SQL, ["sort_agg"],
                        "sortagg")
     got = res.fetch(port.store)
     assert got["l_orderkey"].tolist() == sorted(got["l_orderkey"].tolist())
@@ -221,8 +260,9 @@ def test_q3_final_falls_back_past_the_sort_cap(sessions, no_wrappers,
     try:
         bench.ensure_tpch(sf=0.01, n_parts=4)
         rbench.ensure_tpch(sf=0.01, n_parts=4)
-        res = _check_query(sessions, bench, rbench, QUERIES["q3"], "topk",
-                           "q3")
+        # the join stage's sort_agg arm over joins falls back too
+        res = _check_query(sessions, bench, rbench, QUERIES["q3"],
+                           ["sort_agg", "topk"], "q3")
         rev = res.fetch(bench.store)["revenue"]
         assert len(rev) == 10 and list(rev) == sorted(rev, reverse=True)
     finally:
@@ -237,5 +277,5 @@ def test_join_queries_fall_back_past_the_join_cap(sessions, no_wrappers,
                                                   monkeypatch, query, cap):
     ref, port, _, _ = sessions
     monkeypatch.setattr(roofline, cap, 1)
-    _check_query(sessions, port, ref, QUERIES[query], "join_probe_agg",
+    _check_query(sessions, port, ref, QUERIES[query], ["join_probe_agg"],
                  query)

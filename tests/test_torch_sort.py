@@ -402,6 +402,182 @@ def test_sort_agg_arm_matches_the_reference_arm(group_cols, pred):
                                    err_msg=c, **TOL)
 
 
+# the sort_agg arm over joins, the port's alone: Q3's join stage in small.
+# The probe side is filtered, joined to a build side with unique keys and
+# two payload columns; a filter over the join, and with ``project`` a
+# project and a filter under it; grouped by the probe key and the payload.
+JOIN_AGGS = [["rev", "sum", {"t": "bin", "op": "*", "l": col("x"),
+                             "r": {"t": "bin", "op": "-", "l": lit(1),
+                                   "r": col("y")}}],
+             ["c", "count", None], ["lo", "min", col("x")]]
+D_PRED = {"t": "cmp", "op": "<", "l": col("d"), "r": lit(30)}
+
+
+def _join_agg_op(project: bool):
+    join = {"t": "join",
+            "probe": {"t": "filter", "pred": SA_PRED,
+                      "child": {"t": "scan_exchange", "source": 0}},
+            "build": {"t": "scan_exchange", "source": 1},
+            "probe_key": "g", "build_key": "bk", "payload": ["d", "sp"]}
+    child = {"t": "filter", "pred": D_PRED, "child": join}
+    if project:
+        child = {"t": "filter", "pred": {"t": "cmp", "op": ">",
+                                         "l": col("sp"), "r": lit(0)},
+                 "child": {"t": "project",
+                           "exprs": [[c, col(c)]
+                                     for c in ("g", "d", "sp", "x", "y")],
+                           "child": child}}
+    return {"t": "partial_agg", "strategy": "sort",
+            "group_cols": ["g", "d", "sp"], "sizes": None,
+            "aggs": JOIN_AGGS, "child": child}
+
+
+def _join_blocks(n_probe: int, cap: int, seed: int):
+    rng = np.random.default_rng(seed)
+    nb = 64
+    probe = {"g": rng.integers(0, nb + 8, n_probe).astype(np.int64),
+             "x": rng.random(n_probe) + 0.5, "y": rng.random(n_probe)}
+    build = {"bk": rng.permutation(nb).astype(np.int64),
+             "d": rng.integers(0, 40, nb).astype(np.int64),
+             "sp": rng.integers(0, 3, nb).astype(np.int32)}
+    pb, bb = port_from_numpy(probe, cap, "cpu"), \
+        port_from_numpy(build, nb, "cpu")
+    pmask = pb.mask & torch.from_numpy(np.r_[rng.random(n_probe) < 0.9,
+                                             np.zeros(cap - n_probe, bool)])
+    return {"in0": (pb.columns, pmask), "in1": (bb.columns, bb.mask)}
+
+
+@pytest.mark.parametrize("project", [False, True], ids=["join", "project"])
+def test_sort_agg_arm_over_joins_equals_the_generic_chain(project):
+    """The arm runs the chain under the aggregate on the generic ops and
+    the aggregate on the kernel's plain version: keys and mask bit for
+    bit, the totals within 1e-12 of ``make_sort_agg``'s, lane for lane."""
+    op = _join_agg_op(project)
+    blocks = _join_blocks(1000, 1024, seed=11 + project)
+    lowered = port_lower.lower_fragment(op)
+    assert lowered.kernel == "sort_agg"
+    leaves: list = []
+    generic = port_ops.build_chain(op, leaves)
+    assert lowered.leaves == leaves
+    got, gmask = lowered.fn(blocks)
+    want, wmask = generic(blocks)
+    assert sorted(got) == sorted(want)
+    assert torch.equal(gmask, wmask) and 1 < int(gmask.sum()) < 1024
+    for c in ("g", "d", "sp"):
+        assert got[c].dtype == torch.int64 and torch.equal(got[c], want[c])
+    for name, _, _ in JOIN_AGGS:
+        np.testing.assert_allclose(got[name].numpy(), want[name].numpy(),
+                                   rtol=1e-12, atol=0, err_msg=name)
+
+
+def _q3_join_stage(session):
+    from repro_torch.core.engine import QueryEngine
+    plan = QueryEngine(session.store, session.catalog,
+                       platform=session.platform,
+                       handler=session.handler).plan_sql(QUERIES["q3"])
+    (p,) = [p for p in plan.pipelines.values()
+            if p.op["t"] == "partial_agg"]
+    return p
+
+
+def test_q3_join_stage_takes_the_sort_agg_arm_the_reference_misses(
+        sessions):
+    """Q3's stage 1 (scans → joins → partial aggregate) lowers to the
+    port's sort_agg arm, where the reference's dispatch misses (its arm
+    takes only a scan chain) and runs the generic ops."""
+    _, port, _, _, _ = sessions
+    p = _q3_join_stage(port)
+    assert "join" in _op_kinds(p.op)
+    info = port_lower.kernel_info(p.op)
+    assert info["kernel"] == "sort_agg" and info["miss"] is None
+    assert info["tiling"]["block_rows"]
+    assert p.kernel == "sort_agg" and p.kernel_miss_reason is None
+    with ref_lower.interpret_gate_disabled():
+        assert ref_lower.kernel_info(p.op)["miss"] == \
+            "sort-strategy aggregate over non-scan child (op=join)"
+
+
+def _op_kinds(op):
+    out = [op["t"]]
+    for k in ("child", "probe", "build"):
+        if k in op:
+            out += _op_kinds(op[k])
+    return out
+
+
+_SCAN_A = {"t": "scan_table", "columns": ["a", "b"]}
+
+
+@pytest.mark.parametrize("child,blocker", [
+    ({"t": "semijoin_probe", "key": "a", "bits": 1024, "k": 6,
+      "child": _SCAN_A}, "semijoin_probe"),
+    ({"t": "join", "probe": _SCAN_A, "probe_key": "a", "build_key": "b",
+      "payload": [], "build": {"t": "partial_agg", "strategy": "sort",
+                               "group_cols": ["b"], "sizes": None,
+                               "aggs": [["c", "count", None]],
+                               "child": _SCAN_A}}, "join"),
+    ({"t": "filter", "pred": {"t": "cmp", "op": ">", "l": col("a"),
+                              "r": lit(0)},
+      "child": {"t": "final", "sort_keys": [], "limit": None,
+                "child": _SCAN_A}}, "final"),
+], ids=["semijoin", "agg-build", "final"])
+def test_sort_agg_arm_names_the_op_it_does_not_take(child, blocker):
+    op = {"t": "partial_agg", "strategy": "sort", "group_cols": ["a"],
+          "sizes": None, "aggs": [["c", "count", None]], "child": child}
+    want = f"sort-strategy aggregate over non-scan child (op={blocker})"
+    assert port_lower.kernel_info(op) == {"kernel": None, "miss": want,
+                                          "tiling": None}
+    assert port_lower.lower_fragment(op) is None
+
+
+@pytest.mark.parametrize("mode", ["broadcast", "repartitioned", "disabled"])
+def test_q3_join_stage_on_the_sort_agg_arm_equals_oracle_and_repro(
+        sessions, mode):
+    """Q3 at SF 0.01 with its joins broadcast (the default planner) and
+    repartitioned (9 partitions, both sides hashed): the join stage runs
+    sort_agg on every fragment, and the rows equal the oracle's and the
+    reference's; under ``lower.disabled()`` every stage runs the generic
+    chain, with the same rows."""
+    _, port, catalog, _, tables = sessions
+    planner = {} if mode != "repartitioned" else dict(
+        broadcast_threshold_bytes=0, exchange_partitions=9,
+        exchange_strategy="combining")
+    s = port_api.connect(
+        store=port.store, quota=8, device="cpu",
+        config=CoordinatorConfig(planner=PlannerConfig(**planner),
+                                 use_result_cache=False))
+    # the reference on a store of its own, so that its runs share no
+    # exchange or result objects with the other tests' runs
+    r = ref_api.connect(
+        tier="local", quota=8,
+        config=RefCoordinatorConfig(planner=RefPlannerConfig(**planner),
+                                    use_result_cache=False))
+    try:
+        s.ensure_tpch(sf=0.01, n_parts=4)
+        r.ensure_tpch(sf=0.01, n_parts=4)
+        if mode == "disabled":
+            with port_lower.disabled():
+                res = s.sql(QUERIES["q3"])
+            assert not any(p.kernel for p in res.stats.pipelines)
+        else:
+            res = s.sql(QUERIES["q3"])
+            # repartitioned, the final is a stage of its own, on topk
+            assert [p.kernel for p in res.stats.pipelines if p.kernel] == \
+                ["sort_agg"] + (["topk"] if planner else [])
+            (stage,) = [p for p in res.stats.pipelines
+                        if p.kernel == "sort_agg"]
+            assert stage.kernel_fragments == stage.n_fragments >= 1
+        got = res.fetch(s.store)
+        assert len(got["revenue"]) == 10
+        _assert_same_rows(got, _oracle(catalog, tables, QUERIES["q3"]),
+                          f"q3 {mode} vs oracle")
+        _assert_same_rows(got, r.sql(QUERIES["q3"]).fetch(r.store),
+                          f"q3 {mode} vs repro")
+    finally:
+        s.close()
+        r.close()
+
+
 @pytest.mark.parametrize("pred", [False, True])
 def test_topk_arm_matches_the_reference_arm(pred):
     cols, mask = _tk_block("plain", 700, seed=8)
@@ -546,9 +722,10 @@ def test_q3_final_runs_the_topk_arm_under_the_benchmark_planner(sessions):
         rbench.ensure_tpch(sf=0.01, n_parts=4)
         res = bench.sql(QUERIES["q3"])
         got = res.fetch(bench.store)
+        # the join stage runs the port's own sort_agg arm over joins
         assert [p.kernel for p in res.stats.pipelines if p.kernel] == \
-            ["topk"]
-        (final,) = [p for p in res.stats.pipelines if p.kernel]
+            ["sort_agg", "topk"]
+        (final,) = [p for p in res.stats.pipelines if p.kernel == "topk"]
         assert final.kernel_fragments == final.n_fragments == 1
         assert not any("not yet ported" in p.kernel_miss_reason
                        for p in res.stats.pipelines)
